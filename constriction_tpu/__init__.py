@@ -1,6 +1,6 @@
-"""constriction_tpu: a TPU-native lossless entropy-coding framework.
+"""constriction_tpu: a lossless entropy-coding framework for JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 `bamler-lab/constriction` v0.5 (studied read-only at /root/reference):
 
 - stream codes: rANS stack coding, range (queue) coding, chain coding
@@ -10,13 +10,13 @@ A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 - exactly-invertible fixed-point entropy models (LeakyQuantizer-style
   QuantizedGaussian/Laplace/Cauchy/Binomial, categorical in
   fast/perfect/lazy/lookup variants, uniform) -- `constriction_tpu.models`;
-- TPU fast path: lane-interleaved rANS with per-lane streams, fixed-point
-  CDF tables in VMEM, and data-parallel block sharding over device meshes --
+- device path: shared-stream lane-interleaved rANS (ILANS2) coded by GPU
+  kernels, and data-parallel block sharding over device meshes --
   `constriction_tpu.ops` / `constriction_tpu.parallel`.
 
 Bitstream discipline is inherited from the reference: the compat path is
 bit-exact with constriction 0.5 (verified against vendored golden vectors),
-and the interleaved TPU format is a documented superset with per-lane
+and the interleaved device format is a documented superset with per-lane
 constriction-compatible streams.
 """
 

@@ -1,4 +1,4 @@
-"""Exactly-invertible fixed-point entropy models (TPU-native rebuild of
+"""Exactly-invertible fixed-point entropy models (rebuild of
 constriction's model layer; see /root/reference/src/stream/model.rs)."""
 
 from .base import EntropyModel, ImpossibleSymbol, ModelFamily

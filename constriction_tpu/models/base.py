@@ -9,7 +9,7 @@ quantile back to ``(symbol, left, prob)``.
 This mirrors the reference's EntropyModel/EncoderModel/DecoderModel trait
 contract (/root/reference/src/stream/model.rs:212-465) in array-friendly form:
 in addition to the scalar hooks, models may override the vectorized hooks used
-by the numpy/C++/TPU fast paths.
+by the numpy/C++/device fast paths.
 """
 
 from __future__ import annotations

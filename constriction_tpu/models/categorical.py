@@ -542,8 +542,8 @@ class NonContiguousCategoricalDecoderModel(EntropyModel):
 class ContiguousLookupDecoderModel(EntropyModel):
     """O(1) decode via a full quantile -> symbol lookup table.
 
-    The table has ``2**P`` entries (8 KiB at the "small" preset u16/P=12 --
-    trivially VMEM-resident on TPU; lookup_contiguous.rs:177-186).
+    The table has ``2**P`` entries (8 KiB at the "small" preset u16/P=12;
+    lookup_contiguous.rs:177-186).
     """
 
     def __init__(self, cdf: np.ndarray, precision: int = 12):

@@ -116,25 +116,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         c.c_int32, c.c_int32, c.c_int32, c.c_int32,
         f64p, f64p, c.c_int64, u32p,
     ]
-    lib.ctpu_exact_tables_packed.restype = c.c_int64
-    lib.ctpu_exact_tables_packed.argtypes = [
-        c.c_int32, c.c_int32, c.c_int32, c.c_int32,
-        f64p, f64p, c.c_int64, c.c_int32, u32p,
-    ]
-    lib.ctpu_exact_tables_packed_t.restype = c.c_int64
-    lib.ctpu_exact_tables_packed_t.argtypes = [
-        c.c_int32, c.c_int32, c.c_int32, c.c_int32,
-        f64p, f64p, c.c_int64, c.c_int64, c.c_int32, u32p, i32p,
-    ]
-    lib.ctpu_transpose_u32.restype = None
-    lib.ctpu_transpose_u32.argtypes = [
-        u32p, u32p, c.c_int64, c.c_int64, c.c_int64,
-    ]
-    lib.ctpu_exact_tv_at.restype = None
-    lib.ctpu_exact_tv_at.argtypes = [
-        c.c_int32, c.c_int32, c.c_int32, c.c_int32,
-        f64p, f64p, i64p, i32p, c.c_int64, u32p,
-    ]
     lib.ctpu_surrogate_window.restype = None
     lib.ctpu_surrogate_window.argtypes = [
         c.c_int32, c.c_double, c.c_double, c.c_double,
@@ -236,12 +217,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         u32p, u32p, c.c_int64, c.c_int64, c.c_int32, c.c_int32,
         u32p, u32p, c.c_int32, c.c_int32, c.c_int32, i32p,
         c.c_int64, i64p, u32p,
-    ]
-    lib.ctpu_ilans2_decode_quantized.restype = None
-    lib.ctpu_ilans2_decode_quantized.argtypes = [
-        u32p, u32p, c.c_int64, c.c_int64, c.c_int32, c.c_int32,
-        c.c_int32, c.c_int32, c.c_int32, f64p, f64p,
-        c.c_int32, c.c_int32, c.c_int32, i32p,
     ]
     lib.ctpu_ilans2_range_encode.restype = c.c_int64
     lib.ctpu_ilans2_range_encode.argtypes = [

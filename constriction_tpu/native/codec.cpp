@@ -27,6 +27,12 @@
 #include <omp.h>
 #endif
 
+// Cheap per-element loops shorter than this run on the calling thread:
+// waking an OpenMP team costs more than the work, and far more when the
+// cores are busy (scalar model queries call in with n = 1).  The other
+// parallel loops skip the team when there is a single item to work on.
+#define CTPU_PAR_MIN 4096
+
 // One range-coder symbol step -- interval update, deferred-carry (Inverted
 // run) resolution, renormalization (queue.rs:126-142, 647-702).  THE single
 // implementation of the subtlest logic in the codec, shared by the scalar
@@ -154,12 +160,12 @@ static inline double binomial_cdf(double x, double n, double p) {
 // math.erf binds, exposed as array loops (OpenMP) so the host's exact-f64
 // model paths run at native speed when scipy's erf is not bit-identical.
 void ctpu_erf_array(const double* x, double* out, int64_t n) {
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n >= CTPU_PAR_MIN)
     for (int64_t i = 0; i < n; i++) out[i] = erf(x[i]);
 }
 
 void ctpu_erfc_array(const double* x, double* out, int64_t n) {
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n >= CTPU_PAR_MIN)
     for (int64_t i = 0; i < n; i++) out[i] = erfc(x[i]);
 }
 
@@ -217,7 +223,7 @@ int32_t ctpu_quantized_ecp(
         // per symbol (s -+ 1/2), glibc only for the ~2*margin ambiguous
         // fraction.  Identical output to the scalar path below.
         const int64_t BLK = 1024;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n > BLK)
         for (int64_t i0 = 0; i0 < n; i0 += BLK) {
             const int64_t m = (i0 + BLK < n) ? BLK : (n - i0);
             double xl[BLK], xr[BLK], Al[BLK], Ar[BLK];
@@ -253,7 +259,7 @@ int32_t ctpu_quantized_ecp(
         }
         return err;
     }
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n >= CTPU_PAR_MIN)
     for (int64_t i = 0; i < n; i++) {
         int32_t s = symbols[i];
         if (s < min_sym || s > max_sym) {
@@ -281,7 +287,7 @@ int32_t ctpu_binomial_ecp(
 {
     const uint32_t total = (uint32_t)(1ull << precision);
     int32_t err = 0;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n >= CTPU_PAR_MIN)
     for (int64_t i = 0; i < n; i++) {
         int32_t s = symbols[i];
         int32_t max_sym = ns[i];
@@ -429,7 +435,7 @@ void ctpu_exact_ncore(
     const bool fast = qm_fast_enabled() && kind != DIST_BINOMIAL
         && precision <= 24;  // the surrogate error bound covers free <= 2^24
     if (!fast) {
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n > 1)
         for (int64_t i = 0; i < n; i++) {
             int64_t core_lo, core_hi;
             qm_core_edges(kind, pa[i], pb[i], free_weight, freeu,
@@ -444,7 +450,7 @@ void ctpu_exact_ncore(
     // the same first-reaching boundaries as qm_core_edges for every input
     // (predicates are exact either way), so ncore is bit-identical.
     const int64_t BLK = 1024;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n > BLK)
     for (int64_t i0 = 0; i0 < n; i0 += BLK) {
         const int64_t m = (i0 + BLK < n) ? BLK : (n - i0);
         int64_t lo[BLK], hi[BLK];
@@ -507,7 +513,7 @@ int64_t ctpu_exact_boundaries(
     const int32_t aux_shift = precision > 16 ? 24 : 16;
     const uint32_t padv = precision > 16 ? (1u << precision) : 0xFFFFu;
     int64_t bad = 0;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(n > 1)
     for (int64_t i = 0; i < n; i++) {
         int64_t bad_seen;
 #pragma omp atomic read
@@ -599,279 +605,6 @@ static inline bool qm_ge(int32_t kind, double a, double b,
     return qm_tv(kind, a, b, free_weight, s) >= threshold;
 }
 
-// Windowed fast row fill: surrogate evaluation in 32-entry chunks (lazily,
-// stopping at the first saturated boundary), ambiguous entries patched
-// with glibc, and (core_lo, ncore, b-1 values) derived with the same
-// clamp rules as the pure walk.  Returns ncore, or -1 when the window is
-// inconclusive (caller falls back to the pure per-symbol path), or -2 on
-// cmax overflow.
-static inline int64_t qm_fill_fast_row(
-    int32_t kind, double a, double b, double free_weight, uint32_t freeu,
-    int32_t min_sym, int32_t max_sym, int32_t cmax,
-    uint32_t* bm1, int64_t* core_lo_out)
-{
-    const int64_t W_MAX = 272;
-    const int64_t CHUNK = 32;
-    int64_t W = (int64_t)cmax + 16;
-    if (W > W_MAX) W = W_MAX;
-    double g = dist_ppf(kind, 1.0 / free_weight, a, b);
-    int64_t ws;
-    if (g != g || g <= (double)min_sym) {
-        ws = min_sym + 1;
-    } else {
-        double gf = std::floor(g) - 3.0;
-        ws = gf <= (double)(min_sym + 1) ? min_sym + 1
-            : (gf >= (double)max_sym ? max_sym : (int64_t)gf);
-    }
-    int64_t n_eval = max_sym - ws + 1;
-    if (n_eval > W) n_eval = W;
-    double A[W_MAX];
-    int64_t evaluated = 0;
-
-    int64_t j0 = -1;        // first index with tv >= 1
-    int64_t ncore = 0;
-    int64_t core_lo = 0;
-    uint32_t last_tv = 0;
-    for (int64_t j = 0; j < n_eval; j++) {
-        if (j >= evaluated) {
-            int64_t m = n_eval - evaluated;
-            if (m > CHUNK) m = CHUNK;
-            ctpu_surrogate_window(kind, a, b, free_weight, ws + evaluated,
-                                  m, A + evaluated);
-            evaluated += m;
-        }
-        uint32_t tv = qm_tv_margined(kind, a, b, free_weight, ws + j, A[j]);
-        last_tv = tv;
-        if (j0 < 0) {
-            if (tv < 1u) continue;
-            if (j == 0 && ws != min_sym + 1) return -1;  // left edge unproven
-            j0 = j;
-            core_lo = ws + j0;
-            *core_lo_out = core_lo;
-            bm1[0] = tv + (uint32_t)(core_lo - min_sym) - 1u;
-            ncore = 1;
-            continue;
-        }
-        if (tv > freeu - 1) return ncore;  // saturated: right-linear regime
-        if (ncore >= cmax) return -2;
-        bm1[ncore++] = tv + (uint32_t)(ws + j - min_sym) - 1u;
-    }
-    // ran off the window: conclusive only if it covers the support end
-    if (ws + n_eval - 1 < max_sym) return -1;
-    if (j0 < 0) {
-        // no positive trunc anywhere: core_lo clamps to max_sym
-        *core_lo_out = max_sym;
-        bm1[0] = last_tv + (uint32_t)(max_sym - min_sym) - 1u;
-        return 1;
-    }
-    return ncore;
-}
-
-// Pure (all-glibc) row fill, shared by the fast path's fallback and the
-// no-AVX/no-fast builds; identical to the original walk.
-static inline int64_t qm_fill_pure_row(
-    int32_t kind, double a, double b, double free_weight, uint32_t freeu,
-    int32_t min_sym, int32_t max_sym, int32_t cmax,
-    uint32_t* bm1, int64_t* core_lo_out)
-{
-    int64_t first_pos = qm_first_reaching(
-        kind, a, b, free_weight, 1u, min_sym, max_sym,
-        dist_ppf(kind, 1.0 / free_weight, a, b) + 0.5,
-        qm_fast_enabled() && kind != DIST_BINOMIAL
-            && free_weight <= 16777216.0);
-    int64_t core_lo = first_pos > max_sym ? max_sym : first_pos;
-    *core_lo_out = core_lo;
-    bm1[0] = qm_tv(kind, a, b, free_weight, core_lo)
-           + (uint32_t)(core_lo - min_sym) - 1u;
-    int64_t ncore = 1;
-    for (int64_t s = core_lo + 1; s <= max_sym; s++) {
-        uint32_t tv = qm_tv(kind, a, b, free_weight, s);
-        if (tv > freeu - 1) break;
-        if (ncore >= cmax) return -2;
-        bm1[ncore++] = tv + (uint32_t)(s - min_sym) - 1u;
-    }
-    return ncore;
-}
-
-// One packed wide-table row (aux word + 3*G quad planes) for a single
-// (mean, scale): fill (fast with pure fallback) + pad + pack, shared by
-// the row-major and fused-transposed builders so the layout can never
-// diverge between them.  Returns 0, or -2 on cmax overflow.
-static inline int64_t qm_build_packed_row(
-    int32_t kind, double a, double b, double free_weight, uint32_t freeu,
-    int32_t min_sym, int32_t max_sym, int32_t cmax, int64_t G,
-    uint32_t padm1, bool fast, uint32_t* row)
-{
-    uint32_t bm1[256];
-    int64_t core_lo;
-    int64_t ncore = fast
-        ? qm_fill_fast_row(kind, a, b, free_weight, freeu, min_sym,
-                           max_sym, cmax, bm1, &core_lo)
-        : -1;
-    if (ncore == -1)
-        ncore = qm_fill_pure_row(kind, a, b, free_weight, freeu, min_sym,
-                                 max_sym, cmax, bm1, &core_lo);
-    if (ncore == -2) return -2;
-    const int64_t ncore_ret = ncore;
-    for (int64_t j = ncore; j < 4 * G; j++) bm1[j] = padm1;
-    row[0] = (uint32_t)(core_lo - min_sym) | ((uint32_t)ncore << 24);
-    for (int64_t g = 0; g < G; g++) {
-        const uint32_t* q = bm1 + 4 * g;
-        row[1 + 3 * g]     = q[0] | (q[1] << 24);
-        row[1 + 3 * g + 1] = (q[1] >> 8) | (q[2] << 16);
-        row[1 + 3 * g + 2] = (q[2] >> 16) | (q[3] << 8);
-    }
-    return ncore_ret;
-}
-
-// Fused wide-table build: boundary fill + the device kernels' packed (b-1)
-// 24-bit-quad layout, written directly as [n, 1 + 3*G] u32 planes
-// (G = ceil(cmax/4); plane 0 is aux).  Skips the intermediate [n, cmax]
-// core array and the numpy packing pass entirely -- on a single-core host
-// the numpy pack costs ~4x the CDF evaluations themselves.  Semantics are
-// identical to ctpu_exact_boundaries + the Python pack_decode_tables wide
-// branch (ops/exact_family.py): pads are (2^P)-1 in (b-1) space, aux keeps
-// the RAW cmax cap (ncore < 2^8 for wide tables, so cmax <= 255 and the
-// local row buffer is a fixed 256-entry stack array).
-int64_t ctpu_exact_tables_packed(
-    int32_t kind, int32_t min_sym, int32_t max_sym, int32_t precision,
-    const double* pa, const double* pb, int64_t n, int32_t cmax,
-    uint32_t* tabs)
-{
-    const double free_weight =
-        (double)(((1ull << precision) - 1) - (uint64_t)((int64_t)max_sym - min_sym));
-    const uint32_t freeu = (uint32_t)free_weight;
-    const uint32_t padm1 = (1u << precision) - 1;  // (pad 2^P) - 1
-    const int64_t G = (cmax + 3) / 4;
-    const int64_t CP1 = 1 + 3 * G;
-    if (precision <= 16 || cmax > 255) return -1;  // wide tables only
-    const bool fast = qm_fast_enabled() && kind != DIST_BINOMIAL
-        && precision <= 24;  // the surrogate error bound covers free <= 2^24
-    int64_t bad = 0;
-#pragma omp parallel for schedule(static)
-    for (int64_t i = 0; i < n; i++) {
-        int64_t bad_seen;
-#pragma omp atomic read
-        bad_seen = bad;
-        if (bad_seen) continue;
-        if (qm_build_packed_row(kind, pa[i], pb[i], free_weight, freeu,
-                                min_sym, max_sym, cmax, G, padm1, fast,
-                                tabs + i * CP1) == -2) {
-#pragma omp critical
-            if (!bad || bad > 1 + i) bad = 1 + i;  // lowest index wins
-        }
-    }
-    return bad;
-}
-
-// Fill + transpose fused: rows are built 64 symbols at a time in an
-// L1-resident block buffer and written straight into the device layout
-// dst[t, plane, lane] (lane = the symbol's index within its grid step of
-// `rows` lanes) -- the [n, CP1] intermediate of ctpu_exact_tables_packed
-// never exists, which on a single-core host saves ~2x the fill cost in
-// allocation faults and a full read+write pass.  Same bad/overflow
-// contract as ctpu_exact_tables_packed.
-int64_t ctpu_exact_tables_packed_t(
-    int32_t kind, int32_t min_sym, int32_t max_sym, int32_t precision,
-    const double* pa, const double* pb, int64_t nsteps, int64_t rows,
-    int32_t cmax, uint32_t* dst, int32_t* ncore_max_out)
-{
-    const double free_weight =
-        (double)(((1ull << precision) - 1) - (uint64_t)((int64_t)max_sym - min_sym));
-    const uint32_t freeu = (uint32_t)free_weight;
-    const uint32_t padm1 = (1u << precision) - 1;
-    const int64_t G = (cmax + 3) / 4;
-    const int64_t CP1 = 1 + 3 * G;
-    if (precision <= 16 || cmax > 255) return -1;
-    const bool fast = qm_fast_enabled() && kind != DIST_BINOMIAL
-        && precision <= 24;  // the surrogate error bound covers free <= 2^24
-    const int64_t B = 64;
-    int64_t bad = 0;
-    int32_t ncore_max = 0;
-#pragma omp parallel for schedule(static) collapse(1)
-    for (int64_t t = 0; t < nsteps; t++) {
-        int64_t bad_seen;
-#pragma omp atomic read
-        bad_seen = bad;
-        if (bad_seen) continue;
-        uint32_t blk[64 * 256 + 64];  // B rows x CP1 (CP1 <= 1+3*64 = 193)
-        uint32_t* step_dst = dst + t * CP1 * rows;
-        const double* sa = pa + t * rows;
-        const double* sb = pb + t * rows;
-        for (int64_t r0 = 0; r0 < rows; r0 += B) {
-            const int64_t r1 = r0 + B < rows ? r0 + B : rows;
-            for (int64_t r = r0; r < r1; r++) {
-                uint32_t* row = blk + (r - r0) * CP1;
-                int64_t nc = qm_build_packed_row(
-                    kind, sa[r], sb[r], free_weight, freeu, min_sym,
-                    max_sym, cmax, G, padm1, fast, row);
-                if (nc == -2) {
-#pragma omp critical
-                    {
-                        int64_t i = t * rows + r;
-                        if (!bad || bad > 1 + i) bad = 1 + i;
-                    }
-                    // keep the block well-defined; result unused
-                    for (int64_t c = 0; c < CP1; c++) row[c] = 0;
-                } else if ((int32_t)nc > ncore_max) {
-#pragma omp critical
-                    if ((int32_t)nc > ncore_max) ncore_max = (int32_t)nc;
-                }
-            }
-            // scatter the block transposed: plane-contiguous runs of B
-            for (int64_t c = 0; c < CP1; c++) {
-                uint32_t* out = step_dst + c * rows + r0;
-                for (int64_t r = r0; r < r1; r++)
-                    out[r - r0] = blk[(r - r0) * CP1 + c];
-            }
-        }
-    }
-    if (ncore_max_out) *ncore_max_out = ncore_max;
-    return bad;
-}
-
-// Exact trunc values at explicit (symbol, s) pairs -- the patch oracle for
-// the on-device table builder (ops/exact_tables_jax.py): the device flags
-// the margin-ambiguous window entries, the host resolves exactly them.
-void ctpu_exact_tv_at(
-    int32_t kind, int32_t min_sym, int32_t max_sym, int32_t precision,
-    const double* pa, const double* pb,
-    const int64_t* sym_idx, const int32_t* svals, int64_t k, uint32_t* out)
-{
-    (void)min_sym;
-    const double free_weight =
-        (double)(((1ull << precision) - 1) - (uint64_t)((int64_t)max_sym - min_sym));
-#pragma omp parallel for schedule(static)
-    for (int64_t i = 0; i < k; i++) {
-        int64_t j = sym_idx[i];
-        out[i] = qm_tv(kind, pa[j], pb[j], free_weight, (int64_t)svals[i]);
-    }
-}
-
-// Blocked u32 transpose: src[t, r, c] -> dst[t, c, r] (the device table
-// layout moves the plane axis in front of the lane axes; numpy's strided
-// transpose + ascontiguousarray walks one element at a time).
-void ctpu_transpose_u32(
-    const uint32_t* src, uint32_t* dst,
-    int64_t nsteps, int64_t rows, int64_t cols)
-{
-    const int64_t B = 64;
-    for (int64_t t = 0; t < nsteps; t++) {
-        const uint32_t* s = src + t * rows * cols;
-        uint32_t* d = dst + t * rows * cols;
-#pragma omp parallel for schedule(static)
-        for (int64_t r0 = 0; r0 < rows; r0 += B) {
-            const int64_t r1 = r0 + B < rows ? r0 + B : rows;
-            for (int64_t c0 = 0; c0 < cols; c0 += B) {
-                const int64_t c1 = c0 + B < cols ? c0 + B : cols;
-                for (int64_t r = r0; r < r1; r++)
-                    for (int64_t c = c0; c < c1; c++)
-                        d[c * rows + r] = s[r * cols + c];
-            }
-        }
-    }
-}
-
 // ---------------------------------------------------------------------------
 // Decode-side quantile inversion for quantized families.
 //
@@ -947,7 +680,7 @@ static inline void qm_qf(const QuantizedModel& m, uint32_t q,
                          int32_t* sym, uint32_t* cum, uint32_t* prob) {
     // Initial guess from the approximate PPF, then exponential bracketing and
     // binary search on the exact fixed-point boundary function.  Boundary
-    // values are CARRIED through the search (like the Pallas bisection), so
+    // values are CARRIED through the search, so
     // the final (cum, prob) need no extra CDF evaluations: the common case
     // (correct guess) costs exactly two evals -- measured 2.6x faster than
     // the re-evaluating form (the same answer is produced regardless of the
@@ -1244,7 +977,7 @@ void ctpu_ilans_encode(
 {
     const uint64_t word_mask = (1ull << word_bits) - 1;
     const int32_t shift = state_bits - precision;
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(L > 1)
     for (int32_t l = 0; l < L; l++) {
         uint64_t state = 0;
         uint32_t* w = words + (int64_t)l * max_words;
@@ -1277,7 +1010,7 @@ void ctpu_ilans_decode_lookup(
 {
     const uint64_t qmask = (1ull << precision) - 1;
     const uint64_t lower = 1ull << (state_bits - word_bits);
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for schedule(static) if(L > 1)
     for (int32_t l = 0; l < L; l++) {
         const uint32_t* w = words + (int64_t)l * max_words;
         int64_t cursor = counts[l];
@@ -1576,7 +1309,7 @@ void ctpu_ilans2_decode_lookup(
 // recorded BEFORE the step runs -- snapshot c covers decoding from symbol
 // c * interval * L on.  A snapshot is a complete coder state: seeding a
 // fresh decode with (states, stream[offset:]) reproduces the suffix
-// bit-exactly (host or Pallas).  This is the interleaved analog of the
+// bit-exactly (host or device).  This is the interleaved analog of the
 // reference's Pos/Seek jump tables (stack.rs:643-700, lib.rs:425-580).
 void ctpu_ilans2_decode_ckpt(
     const uint32_t* init_states, const uint32_t* stream, int64_t stream_len,
@@ -1614,43 +1347,6 @@ void ctpu_ilans2_decode_ckpt(
             }
             st[l] = s;
             out[b0 + l] = (int32_t)sym;
-        }
-    }
-    delete[] st;
-}
-
-// Shared-stream decode with a per-symbol-parameterized quantized family.
-void ctpu_ilans2_decode_quantized(
-    const uint32_t* init_states, const uint32_t* stream, int64_t stream_len,
-    int64_t num_symbols, int32_t L, int32_t num_steps,
-    int32_t kind, int32_t min_sym, int32_t max_sym,
-    const double* pa, const double* pb,
-    int32_t word_bits, int32_t state_bits, int32_t precision,
-    int32_t* out)
-{
-    const uint64_t qmask = (1ull << precision) - 1;
-    const uint64_t lower = 1ull << (state_bits - word_bits);
-    const double free_weight =
-        (double)(((1ull << precision) - 1) - (uint64_t)((int64_t)max_sym - min_sym));
-    uint64_t* st = new uint64_t[L];
-    for (int32_t l = 0; l < L; l++) st[l] = init_states[l];
-    int64_t base = 0;
-
-    for (int64_t t = 0; t < num_steps; t++) {
-        for (int32_t l = 0; l < L; l++) {
-            int64_t idx = t * L + l;
-            if (idx >= num_symbols) continue;
-            uint64_t s = st[l];
-            uint64_t q = s & qmask;
-            QuantizedModel m{kind, min_sym, max_sym, precision, pa[idx], pb[idx], free_weight};
-            int32_t sym; uint32_t cum, prob;
-            qm_qf(m, (uint32_t)q, &sym, &cum, &prob);
-            s = (s >> precision) * (uint64_t)prob + (q - cum);
-            if (s < lower && base < stream_len) {
-                s = (s << word_bits) | stream[base++];
-            }
-            st[l] = s;
-            out[idx] = sym;
         }
     }
     delete[] st;

@@ -1,4 +1,4 @@
-"""Coder cores: exact scalar state machines (host) and TPU kernels."""
+"""Coder cores: exact scalar state machines (host) and device coders."""
 
 from .ans import AnsCoderCore
 from .chain import ChainCoderCore

@@ -15,7 +15,7 @@ Decoding pulls exactly P bits per symbol from the compressed stream
 (chain.rs:1112-1119); encoding is the exact inverse (chain.rs:1140-1206).
 Because each symbol consumes a fixed P bits, changing the entropy model of one
 symbol only affects that symbol ("symbol-local" decoding, chain.rs:1-84) --
-which also makes this the most TPU-parallel-friendly of the stream codes
+which also makes this the most parallel-friendly of the stream codes
 (static per-symbol bit offsets; see ops.interleaved).
 """
 

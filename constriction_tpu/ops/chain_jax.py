@@ -1,4 +1,4 @@
-"""Vectorized (TPU/XLA) chain-coder decoding.
+"""Vectorized (XLA) chain-coder decoding.
 
 The chain coder (ops/chain.py, mirroring /root/reference/src/stream/chain.rs)
 reads EXACTLY ``precision`` bits per symbol from the compressed stream — no
@@ -14,7 +14,7 @@ the head buffer runs a fixed 4-symbols-per-3-words cycle
 (w = compressed words in pop order), verified against the scalar core.  The
 symbol for each quantile depends only on that symbol's own model (chain
 locality, chain.rs:1-84), so the whole decode is one batched model
-inversion — ideal for rank-2 / per-symbol-model workloads on TPU.
+inversion — ideal for rank-2 / per-symbol-model workloads on a device.
 
 This module decodes SYMBOLS only (the common "read the message" path); the
 remainders stream needed to reconstruct the original bits for bits-back
@@ -51,9 +51,8 @@ def extract_quantiles(xp, pop_words, n: int):
     ignored.  Works with xp = numpy or jax.numpy.
     """
     groups = -(-n // 4)
-    # pad groups to a multiple of 32 so the interleave is row-local on TPU
-    # (a [nr, 96] -> [nr, 32, 4] lane shuffle instead of a global transpose;
-    # measured 33x faster than jnp.stack(axis=1).reshape)
+    # pad groups to a multiple of 32 so the interleave is row-local
+    # (a [nr, 96] -> [nr, 32, 4] lane shuffle instead of a global transpose)
     groups_p = -(-groups // 32) * 32
     need = 3 * groups_p
     w = pop_words.astype(xp.uint32)
@@ -75,9 +74,9 @@ def _searchsorted_sym(xp, q, cdf: np.ndarray):
     """sym = max{s : cdf[s] <= q} via compare-sum (branch-free, no gathers).
     Plain i32 accumulation (precision 24 exceeds the packed-field budget).
 
-    On TPU the quantiles are reshaped to [*, 128] tiles and materialized
-    behind an optimization barrier first: letting XLA fuse the extraction
-    into all K boundary compares re-runs it K times (measured 300x slower).
+    The quantiles are reshaped to [*, 128] tiles and materialized behind an
+    optimization barrier first: letting XLA fuse the extraction into all K
+    boundary compares would re-run it K times.
     """
     c = [int(v) for v in np.asarray(cdf)]
     K = len(c) - 1

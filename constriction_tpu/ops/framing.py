@@ -332,8 +332,7 @@ def _bits_to_stream(bits: np.ndarray, W: int, nwords: int) -> np.ndarray:
 
 def _pick_lb(L_A: int) -> int:
     """Region-B lane count: small enough that B's own floor cost is noise
-    relative to A's seed capacity (B is a short tail, decoded on the host;
-    no 128-lane alignment needed)."""
+    relative to A's seed capacity (B is a short tail, decoded on the host)."""
     return max(8, min(1024, L_A // 64))
 
 
@@ -384,8 +383,7 @@ def frame_planes_v2(cums, probs, cfg: LaneConfig,
     planes), seed-payload packing, and the header layout are identical
     for every model family; the caller supplies ``encode_a(n_A, seeds)``
     -> ``(states_A, stream_A)`` -- the seeded region-A encoder (which may
-    be a device kernel).  Used by :func:`encode_iid_v2` (categorical) and
-    ops/framing_family.py (reference-exact per-symbol families)."""
+    be the device encoder)."""
     n = len(cums)
     L = cfg.num_lanes
     S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
@@ -493,20 +491,12 @@ def frame_planes_v2(cums, probs, cfg: LaneConfig,
 
 
 def _encode_region_a(symbols, cums, probs, cdf, cfg, seeds, device):
-    """Region-A encode: seeded host encoder, or the Pallas device encoder
-    when requested and eligible."""
-    if device and il2._pallas_eligible(cfg):
-        if cfg.state_bits == 64:
-            from . import pallas_coder64 as pc64
+    """Region-A encode: seeded host encoder, or the device encoder
+    (ops/device_coder.py) when requested and supported."""
+    from . import device_coder
 
-            return pc64.encode_iid64_pallas(
-                np.asarray(symbols, np.int64), cdf, cfg, seeds=seeds
-            )
-        from . import pallas_coder as pc
-
-        return pc.encode_iid_pallas(
-            np.asarray(symbols, np.int64), cdf, cfg, seeds=seeds
-        )
+    if device and device_coder.supports(cfg):
+        return device_coder.encode(symbols, cdf, cfg, seeds=seeds)
     return il2.encode_shared(cums, probs, cfg, seeds=seeds)
 
 
@@ -697,17 +687,11 @@ def decode_from_checkpoint_v2(
 
 def _decode_region_a(states, stream, n, cdf, cfg, device):
     """Decode region A returning (symbols, final lane states)."""
-    if device and il2._pallas_eligible(cfg):
-        if cfg.state_bits == 64:
-            from . import pallas_coder64 as pc64
+    from . import device_coder
 
-            return pc64.decode_shared64_pallas(
-                states, stream, cdf, cfg, n, return_final_states=True
-            )
-        from . import pallas_coder as pc
-
-        return pc.decode_shared_pallas(
-            states, stream, cdf, cfg, n, return_final_states=True
+    if device and device_coder.supports(cfg):
+        return device_coder.decode(
+            states, stream, n, cdf, cfg, return_final_states=True
         )
     return il2.decode_shared_cdf(
         states, stream, n, cdf, cfg, return_final_states=True

@@ -1,15 +1,14 @@
 """Lane-interleaved rANS v1 ("ILANS", per-lane streams) -- SUPERSEDED.
 
-STATUS: v1 is kept as a reference implementation and test fixture only
-(its per-lane word cursors force XLA gathers, measured 0.024 GB/s on TPU).
-The product format is ILANS v2 (ops/interleaved2.py: one shared stream,
-gather-free decode) with the Pallas kernels in ops/pallas_coder.py;
-`LaneConfig` defined here remains the shared configuration type.
+STATUS: v1 is kept as a reference implementation and test fixture only.
+The product format is ILANS v2 (ops/interleaved2.py: one shared stream)
+with the device coder in ops/device_coder.py; `LaneConfig` defined here
+remains the shared configuration type.
 
 The reference's rANS coder is intrinsically sequential: each symbol's state
 update depends on the previous one (/root/reference/src/stream/stack.rs:
-1014-1100).  On TPU we restructure the message into L independent lanes (one
-rANS state per VPU lane): symbol ``i`` belongs to lane ``i % L`` at step
+1014-1100).  We restructure the message into L independent lanes (one
+rANS state per vector lane): symbol ``i`` belongs to lane ``i % L`` at step
 ``i // L``.  Each lane is an honest constriction ``AnsCoder`` (same state
 algebra, same framing), so every lane's stream is independently decodable by
 the scalar host coder -- the interleaving is pure data layout, following the
@@ -18,7 +17,7 @@ interleaved-entropy-coder construction of Giesen (arXiv:1402.3392).
 Per-lane streams (rather than one shared round-robin stream) are chosen so
 that decoding needs no cross-lane prefix sums: each lane keeps its own read
 cursor, and one step of the decoder is a handful of vector ops plus 2-3
-gathers -- ideal for the VPU.
+gathers.
 
 Container format (ILANS v1, little-endian u32 header):
 
@@ -32,8 +31,7 @@ Container format (ILANS v1, little-endian u32 header):
     then the per-lane streams, concatenated in lane order and packed
     contiguously as W-bit words into u32s (zero-padded to a u32 boundary).
 
-Presets: "small" (W=16, S=32, P<=16) is the TPU fast path with O(1) lookup
-decoding; "default" (W=32, S=64, P=24) matches the reference's default
+Presets: "small" (W=16, S=32, P<=16) has O(1) lookup decoding; "default" (W=32, S=64, P=24) matches the reference's default
 fidelity and runs vectorized on the host / u64-capable backends.
 """
 

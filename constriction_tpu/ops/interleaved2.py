@@ -1,27 +1,20 @@
-"""ILANS v2: shared-stream interleaved rANS with a gather-free TPU decode.
-
-Motivation (measured on the target TPU): any per-element dynamic addressing
-(XLA gathers, per-lane cursors) runs on the scalar core at ~8 ns/element,
-while dense vector arithmetic is essentially free.  ILANS v1's per-lane
-streams therefore bottleneck on the refill gather.  ILANS v2 eliminates every
-gather from the decode loop:
+"""ILANS v2: shared-stream interleaved rANS (format definition + host oracle).
 
 - All L lanes share ONE word stream laid out in exact decode-consumption
   order (Giesen's single-stream interleaving, arXiv:1402.3392): at decode
   step t, the lanes whose state dropped below 2**(S-W) read the next words
-  from the stream, in ascending lane order.  The decoder's only memory access
-  is a *contiguous* dynamic slice at a scalar offset.
-- The per-step distribution of that chunk to refilling lanes is a monotone
-  expansion: lane l needs chunk[rank_l] with rank = exclusive prefix sum of
-  the refill mask.  Monotone routes are realizable conflict-free on a
-  butterfly network (Nassimi & Sahni), so the expansion is log2(L) rounds of
-  static roll + select -- pure vector ops.
+  from the stream, in ascending lane order.  A decoder finds lane l's word
+  at ``base + rank_l``, with rank the exclusive prefix sum of the refill
+  mask over the lanes -- one contiguous run of the stream per step.
 - Lane states are *seeded* at exactly 2**(S-W) so the state invariant
   ``state >= 2**(S-W)`` holds from the first step; the decode refill
   condition ``state < 2**(S-W)`` then mirrors the encoder's emission schedule
   one-to-one with no per-lane word counts.  Initial decoder states are stored
-  as a dense [L] u32 header (the only rate overhead vs. a single-lane coder,
-  ~4 bytes/lane).
+  as a dense [L] header (the only rate overhead vs. a single-lane coder;
+  ops/framing.py's v2 container packs them and recovers the seeds).
+
+The device twins (ops/device_coder.py: GPU kernels, and a plain-XLA coder)
+produce exactly this module's bytes.
 
 Per-lane coding algebra is exactly the reference's rANS
 (/root/reference/src/stream/stack.rs:1014-1100), so fidelity/precision
@@ -429,16 +422,9 @@ def decode_shared_range_cdf(
     return out[:num_symbols]
 
 
-def encode_iid_categorical_range(symbols, cdf, cfg: LaneConfig, device: bool = False):
-    """``device=True`` runs the Pallas two-phase range encoder (bit-exact
-    with the host C++ path)."""
+def encode_iid_categorical_range(symbols, cdf, cfg: LaneConfig):
+    """Host (C++) ILANS2-R encode of i.i.d. categorical symbols."""
     symbols = np.asarray(symbols, dtype=np.int64)
-    if device and _pallas_eligible(cfg):
-        from . import pallas_range_enc as pre
-
-        if cfg.state_bits == 64:
-            return pre.encode_iid_range64_pallas(symbols, cdf, cfg)
-        return pre.encode_iid_range_pallas(symbols, cdf, cfg)
     cdf64 = np.asarray(cdf, dtype=np.uint64)
     cums = cdf64[symbols]
     probs = cdf64[symbols + 1] - cums
@@ -563,41 +549,20 @@ def unpack_container2(data: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int, La
     return init_states, stream[:stream_len], num_symbols, cfg
 
 
-def _pallas_eligible(cfg: LaneConfig) -> bool:
-    """The Pallas kernels cover W=16/S=32 up to P=16 (the model-inversion
-    auto dispatcher handles every alphabet size: packed/segtree/bitmap/
-    segmented forms) and the default-preset sizes W=32/S=64 up to P=24
-    (ops/pallas_coder64.py); lanes must tile the 128-wide VPU."""
-    if cfg.num_lanes % 128 != 0:
-        return False
-    if cfg.state_bits == 32 and cfg.word_bits == 16:
-        return cfg.precision <= 16
-    if cfg.state_bits == 64 and cfg.word_bits == 32:
-        return cfg.precision <= 24
-    return False
-
-
 def encode_iid_categorical2(
     symbols: np.ndarray, cdf: np.ndarray, cfg: LaneConfig, device: bool = False
 ) -> np.ndarray:
     """Encode i.i.d. categorical symbols into an ILANS2 container.
 
-    ``device=True`` runs the Pallas TPU encoder (bit-identical container);
-    the default is the host (C++/numpy) path.
+    ``device=True`` runs the device encoder (ops/device_coder.py;
+    bit-identical container); the default is the host (C++/numpy) path.
     """
+    from . import device_coder
+
     symbols = np.asarray(symbols, dtype=np.int64)
-    if device and _pallas_eligible(cfg):
-        if cfg.state_bits == 64:
-            from . import pallas_coder64 as pc64
-
-            states, stream = pc64.encode_iid64_pallas(symbols, cdf, cfg)
-        else:
-            from . import pallas_coder as pc
-
-            states, stream = pc.encode_iid_pallas(symbols, cdf, cfg)
-        return pack_container2(
-            np.asarray(states), np.asarray(stream), len(symbols), cfg
-        )
+    if device and device_coder.supports(cfg):
+        states, stream = device_coder.encode(symbols, cdf, cfg)
+        return pack_container2(states, stream, len(symbols), cfg)
     cdf64 = np.asarray(cdf, dtype=np.uint64)
     cums = cdf64[symbols]
     probs = cdf64[symbols + 1] - cums
@@ -608,21 +573,13 @@ def encode_iid_categorical2(
 def decode_iid_categorical2(
     data: np.ndarray, cdf: np.ndarray, device: bool = False
 ) -> np.ndarray:
-    """Decode an ILANS2 container; ``device=True`` uses the Pallas TPU
-    kernel (identical output), the default the host oracle."""
+    """Decode an ILANS2 container; ``device=True`` uses the device decoder
+    (ops/device_coder.py; identical output), the default the host oracle."""
+    from . import device_coder
+
     init_states, stream, n, cfg = unpack_container2(data)
-    if device and _pallas_eligible(cfg):
-        if cfg.state_bits == 64:
-            from . import pallas_coder64 as pc64
-
-            return np.asarray(
-                pc64.decode_shared64_pallas(init_states, stream, cdf, cfg, n)
-            )
-        from . import pallas_coder as pc
-
-        return np.asarray(
-            pc.decode_shared_pallas(init_states, stream, cdf, cfg, n)
-        )
+    if device and device_coder.supports(cfg):
+        return device_coder.decode(init_states, stream, n, cdf, cfg)
     return decode_shared_cdf(init_states, stream, n, cdf, cfg)
 
 
@@ -642,8 +599,8 @@ def build_checkpoints(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode once, capturing a (stream offset, lane states) snapshot every
     ``interval`` steps.  Snapshot c is a complete coder state for symbol
-    ``c * interval * L`` on: seed :func:`decode_shared_cdf` (or the Pallas
-    kernel) with ``(states[c], stream[offsets[c]:])`` to decode the suffix
+    ``c * interval * L`` on: seed :func:`decode_shared_cdf` (or the device
+    decoder) with ``(states[c], stream[offsets[c]:])`` to decode the suffix
     bit-exactly without touching the prefix.
 
     Returns ``(offsets i64[C], states u32[C, L])`` — u64 states for
@@ -724,7 +681,7 @@ def decode_from_checkpoint(
     """Decode the message suffix starting at checkpoint ``ckpt_index``
     (symbol ``(ckpt_index + 1) * interval * L``).  Returns
     ``(start_symbol, suffix_symbols)``; bit-exact with the corresponding
-    slice of a full decode.  ``device=True`` runs the Pallas kernel (a
+    slice of a full decode.  ``device=True`` runs the device decoder (a
     checkpoint is an ordinary (states, stream-suffix) pair)."""
     L = cfg.num_lanes
     start = (ckpt_index + 1) * interval * L
@@ -732,22 +689,11 @@ def decode_from_checkpoint(
     if remaining <= 0:
         return start, np.zeros(0, dtype=np.int64)
     sub_stream = stream[int(offsets[ckpt_index]) :]
-    if device and _pallas_eligible(cfg):
-        if cfg.state_bits == 64:
-            from . import pallas_coder64 as pc64
+    from . import device_coder
 
-            out = np.asarray(
-                pc64.decode_shared64_pallas(
-                    ckpt_states[ckpt_index], sub_stream, cdf, cfg, remaining
-                )
-            )
-            return start, out
-        from . import pallas_coder as pc
-
-        out = np.asarray(
-            pc.decode_shared_pallas(
-                ckpt_states[ckpt_index], sub_stream, cdf, cfg, remaining
-            )
+    if device and device_coder.supports(cfg):
+        out = device_coder.decode(
+            ckpt_states[ckpt_index], sub_stream, remaining, cdf, cfg
         )
     else:
         out = decode_shared_cdf(
@@ -867,12 +813,10 @@ def decode_range_from_checkpoint(
     cdf: np.ndarray,
     cfg: LaneConfig,
     interval: int,
-    device: bool = False,
 ) -> Tuple[int, np.ndarray]:
     """Decode a range stream's suffix from checkpoint ``ckpt_index``
     (:func:`build_checkpoints_range`); bit-exact with the corresponding
-    slice of a full decode.  ``device=True`` resumes on the seeded Pallas
-    range kernel (initial lower/range planes as extra kernel inputs)."""
+    slice of a full decode (host oracle)."""
     L = cfg.num_lanes
     start = (ckpt_index + 1) * interval * L
     remaining = num_symbols - start
@@ -882,55 +826,6 @@ def decode_range_from_checkpoint(
     lo = np.asarray(lows[ckpt_index], np.uint64)
     rn = np.asarray(rngs[ckpt_index], np.uint64)
     pt = np.asarray(pts[ckpt_index], np.uint64)
-    if device and _pallas_eligible(cfg):
-        import jax
-        import jax.numpy as jnp
-
-        from . import pallas_coder as pc
-
-        interpret = jax.default_backend() != "tpu"
-        T_r = -(-remaining // L)
-        tail_r = remaining - (T_r - 1) * L
-        R = L // 128
-        s2d = pc._pad_stream2d(np.asarray(sub_stream), R)
-        if cfg.state_bits == 64:
-            from . import pallas_coder64 as pc64
-
-            fn = pc64._build_range_decoder64(
-                tuple(int(x) for x in np.asarray(cdf)), cfg, T_r, tail_r, L,
-                interpret, seeded=True,
-            )
-
-            def _pl(x):
-                return jnp.asarray(
-                    (x & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-                ).reshape(R, 128)
-
-            def _ph(x):
-                return jnp.asarray(
-                    (x >> np.uint64(32)).astype(np.uint32)
-                ).reshape(R, 128)
-
-            syms, _phf, _plf, bad = fn(
-                _ph(pt), _pl(pt), _ph(lo), _pl(lo), _ph(rn), _pl(rn), s2d
-            )
-        else:
-            fn = pc._build_range_decoder(
-                tuple(int(x) for x in np.asarray(cdf)), cfg, T_r, tail_r, L,
-                interpret, seeded=True,
-            )
-            syms, _ptf, bad = fn(
-                jnp.asarray(pt.astype(np.uint32)).reshape(R, 128),
-                jnp.asarray(lo.astype(np.uint32)).reshape(R, 128),
-                jnp.asarray(rn.astype(np.uint32)).reshape(R, 128),
-                s2d,
-            )
-        if int(np.asarray(bad)[0]):
-            raise ValueError(
-                "Tried to decode data that is inconsistent with the "
-                "entropy model."
-            )
-        return start, np.asarray(syms).reshape(-1)[:remaining]
     cdf64 = np.asarray(cdf, dtype=np.uint64)
     out, _ = _range_oracle_loop(
         pt.copy(), lo.copy(), rn.copy(), sub_stream, remaining, cdf64, cfg

@@ -1,21 +1,20 @@
-"""JAX (XLA/TPU) lane-interleaved rANS encode/decode.
+"""JAX (XLA) lane-interleaved rANS encode/decode.
 
 Jittable, static-shape implementations of the ILANS format defined in
 :mod:`constriction_tpu.ops.interleaved` (same algebra as the reference's
 AnsCoder, stack.rs:1014-1100, vectorized across lanes).  All arithmetic is
 uint32 (state 32 bits, words 16 or 8 bits, precision <= 16), so the hot loop
-maps onto native VPU integer ops -- no 64-bit emulation.
+maps onto native 32-bit integer ops.
 
 The per-step control flow is branch-free: data-dependent renormalization is
 handled with masked selects and per-lane cursors (no cross-lane prefix sums,
 because every lane owns its own word stream).
 
-Layout notes for TPU:
-- `words` is a [L, M] u32 array (one W-bit word per element).  For L = 2^k
-  lanes this tiles perfectly onto the (8, 128) VPU registers.
+Layout notes:
+- `words` is a [L, M] u32 array (one W-bit word per element).
 - the i.i.d. decode path performs 2 gathers per step (quantile -> symbol via
   the lookup table, symbol -> packed (cum | prob << 16)); both tables are
-  small enough for VMEM at the "small" preset (2^12 * 4 B = 16 KiB).
+  small at the "small" preset (2^12 * 4 B = 16 KiB).
 """
 
 from __future__ import annotations

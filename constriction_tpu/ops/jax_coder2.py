@@ -1,445 +1,174 @@
-"""JAX gather-free decoder/encoder for ILANS v2 (shared-stream interleaved rANS).
+"""Plain-XLA ILANS2 coder (shared-stream interleaved rANS), width-generic.
 
-Everything in the hot loop is dense vector arithmetic:
+The twin of the host oracle (ops/interleaved2.py ``encode_shared`` /
+``decode_shared_cdf``) as one ``lax.scan`` over the T steps of a batch of
+independent container blocks.  It runs wherever XLA runs: it is the CPU
+route of the device coder (ops/device_coder.py) and the baseline that the
+GPU kernels in ``constriction_tpu/cuda`` are measured against.
 
-- model inversion by compare-sum over the CDF (no table gather);
-- refill words come from ONE contiguous `lax.dynamic_slice` per step at a
-  scalar offset, distributed to lanes by a monotone butterfly expansion
-  (log2(L) static rolls + selects);
-- the encoder is the exact mirror: butterfly compaction + one contiguous
-  `lax.dynamic_update_slice` per step.
+Both (W, S) presets are covered: W=16/S=32 with u32 lane states and
+W=32/S=64 with native u64 states (the caller enables ``jax_enable_x64``).
+Per step:
 
-See ops/interleaved2.py for the format definition and the numpy oracle.
+- decode inverts each lane's quantile through a table lookup (a 2^P table
+  at P <= 16, a binary search over the CDF above that);
+- the refill ranks are an exclusive integer ``cumsum`` over the refill
+  mask, and the refill words one gather at ``base + rank``;
+- encode is the mirror: the emission ranks are an integer ``cumsum`` and
+  the words one scatter at ``end - k + rank``, walking t = T-1 .. 0.
+
+Shapes: ``states``/``seeds`` [B, L]; symbols [B, T*L] int32 (step-major);
+streams [B, cap] u32, one W-bit word per element.  ``nsym`` (int32[1]) is
+the symbol count of every block; lanes at or past ``nsym - (T-1)*L`` in the
+last step are inactive.
 """
 
 from __future__ import annotations
-
-from functools import partial
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .interleaved import LaneConfig
+from .interleaved import LaneConfig, _state_dtype
 
 
-def _log2(x: int) -> int:
-    n = 0
-    while (1 << n) < x:
-        n += 1
-    return n
+def _active(t, nsym, T: int, L: int):
+    """[L] mask of the lanes that code a symbol at step ``t``."""
+    last = nsym[0] - (T - 1) * L
+    n_act = jnp.where(t == T - 1, last, L)
+    return jnp.arange(L, dtype=jnp.int32) < n_act
 
 
-def _compare_sum_qf(q: jax.Array, cdf: np.ndarray):
-    """Branch-free quantile inversion: returns (sym, cum, prob) u32 vectors.
-
-    ``cdf`` must be a host numpy array (its values are baked into the program
-    as scalar constants, which XLA hoists into registers).
-    """
-    K = len(cdf) - 1
-    sym = jnp.zeros_like(q)
-    cum = jnp.zeros_like(q)
-    right = jnp.zeros_like(q)
-    ge_prev = jnp.ones_like(q)  # [cdf[0] <= q] is always true
-    for j in range(1, K + 1):
-        delta = np.uint32(cdf[j] - cdf[j - 1])
-        right = right + delta * ge_prev
-        if j < K:
-            ge = (q >= np.uint32(cdf[j])).astype(jnp.uint32)
-            cum = cum + delta * ge
-            sym = sym + ge
-            ge_prev = ge
-    return sym, cum, right - cum
+def _excl_ranks(mask):
+    """Exclusive prefix count of ``mask`` along the lane axis, and totals."""
+    m = mask.astype(jnp.int32)
+    incl = jnp.cumsum(m, axis=-1)
+    return incl - m, incl[..., -1]
 
 
-def _expand_monotone(chunk: jax.Array, d: jax.Array, log_l: int) -> jax.Array:
-    """Monotone butterfly expansion: out[l] = chunk[l - d[l]] for the lanes
-    that matter (d = lane - rank, non-decreasing); MSB -> LSB, conflict-free
-    for monotone routes.
-
-    Runs in uint16 when the payload allows it: halving the element width
-    halves the roll bandwidth and engages the packed 16-bit VPU path
-    (measured ~4x faster end-to-end on TPU v5e)."""
-    ex = chunk
-    for b in range(log_l - 1, -1, -1):
-        ex = jnp.where((d >> b) & 1, jnp.roll(ex, 1 << b), ex)
-    return ex
-
-
-def _compact_monotone(vals: jax.Array, d: jax.Array, log_l: int) -> jax.Array:
-    """Monotone butterfly compaction (inverse of expansion): moves vals[l]
-    down by d[l] positions; LSB -> MSB, carrying displacements along."""
-    ex = vals
-    dd = d
-    for b in range(log_l):
-        shift = 1 << b
-        ex2 = jnp.roll(ex, -shift)
-        dd2 = jnp.roll(dd, -shift)
-        take = ((dd2 >> b) & 1).astype(bool)
-        ex = jnp.where(take, ex2, ex)
-        dd = jnp.where(take, dd2, dd)
-    return ex
-
-
-def decode_shared_compare_sum(
-    init_states: jax.Array,
-    stream: jax.Array,
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    num_steps: int,
-    num_symbols: int,
-    out_dtype=jnp.int32,
-) -> jax.Array:
-    """Gather-free i.i.d. decode; returns [num_steps * L] symbols."""
+def decode_blocks(states, streams, lens, cdf, lut, nsym, *,
+                  cfg: LaneConfig, T: int):
+    """Decode B blocks.  ``lut`` is the 2^P quantile -> symbol table
+    (int32) at P <= 16; above, it is ignored and each quantile is found
+    by a binary search over ``cdf``.  Returns
+    ``(symbols int32[B, T*L], final_states [B, L])``."""
     L = cfg.num_lanes
     S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
-    log_l = _log2(L)
-    lower = np.uint32(1 << (S - W))
-    qmask = np.uint32((1 << P) - 1)
-    lanes = jnp.arange(L, dtype=jnp.uint32)
-
-    # The stream and butterfly run in u16 when the word size allows it: half
-    # the roll bandwidth + packed 16-bit VPU ops (measured ~4x end-to-end).
-    narrow = W <= 16 and L <= (1 << 16)
-    st_dtype = jnp.uint16 if narrow else jnp.uint32
-    lanes_n = jnp.arange(L, dtype=st_dtype)
-
-    # Pad so the per-step L-wide slice never reads out of bounds.
-    stream_padded = jnp.concatenate(
-        [jnp.asarray(stream).astype(st_dtype), jnp.zeros(L, dtype=st_dtype)]
-    )
-    static_n = isinstance(num_symbols, int)
-    tail_start = num_symbols - (num_steps - 1) * L if (static_n and num_steps) else 0
+    dt = _state_dtype(cfg)
+    streams, lens, lut = map(jnp.asarray, (streams, lens, lut))
+    B, cap = streams.shape
+    lower = dt(1 << (S - W))
+    qmask = dt((1 << P) - 1)
+    cdf_s = jnp.asarray(cdf).astype(dt)
 
     def step(carry, t):
-        states, base = carry
-        q = states & qmask
-        sym, cum, prob = _compare_sum_qf(q, cdf)
-        new_states = (states >> P) * prob + (q - cum)
-        if not static_n:
-            active = jnp.clip(
-                jnp.asarray(num_symbols, jnp.int32) - t * L, 0, L
-            ).astype(jnp.uint32)
-            new_states = jnp.where(lanes < active, new_states, states)
-        elif tail_start < L:
-            active = jnp.where(t < num_steps - 1, jnp.uint32(L), jnp.uint32(tail_start))
-            new_states = jnp.where(lanes < active, new_states, states)
-        states = new_states
-        m = states < lower
-        m32 = m.astype(jnp.uint32)
-        ranks = jnp.cumsum(m32) - m32
-        k = ranks[-1] + m32[-1]
-        chunk = jax.lax.dynamic_slice(stream_padded, (base,), (L,))
-        d = lanes_n - ranks.astype(st_dtype)
-        ex = _expand_monotone(chunk, d, log_l)
-        states = jnp.where(m, (states << W) | ex.astype(jnp.uint32), states)
-        return (states, base + k.astype(jnp.int32)), sym.astype(out_dtype)
-
-    (states, base), syms = jax.lax.scan(
-        step,
-        (jnp.asarray(init_states, dtype=jnp.uint32), jnp.int32(0)),
-        jnp.arange(num_steps, dtype=jnp.int32),
-    )
-    return syms.reshape(-1)
-
-
-def decode_shared_rows(
-    init_states: jax.Array,
-    stream: jax.Array,
-    rows: jax.Array,  # [T, L, K+1] u32: a per-symbol CDF row for every slot
-    cfg: LaneConfig,
-    num_steps: int,
-    num_symbols: int,
-    out_dtype=jnp.int32,
-) -> jax.Array:
-    """Gather-free decode with a *different* categorical model per symbol
-    (rank-2 parameterization).  The per-step CDF rows stream in as scan xs;
-    inversion is a compare-sum over the row columns (no gathers).
-
-    Inactive tail slots must carry a row that decodes quantile ranges safely
-    (e.g. full mass on symbol 0)."""
-    L = cfg.num_lanes
-    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
-    log_l = _log2(L)
-    K = rows.shape[-1] - 1
-    lower = np.uint32(1 << (S - W))
-    qmask = np.uint32((1 << P) - 1)
-    lanes = jnp.arange(L, dtype=jnp.uint32)
-    tail_start = num_symbols - (num_steps - 1) * L if num_steps else 0
-
-    narrow = W <= 16 and L <= (1 << 16)
-    st_dtype = jnp.uint16 if narrow else jnp.uint32
-    lanes_n = jnp.arange(L, dtype=st_dtype)
-    stream_padded = jnp.concatenate(
-        [jnp.asarray(stream).astype(st_dtype), jnp.zeros(L, dtype=st_dtype)]
-    )
-
-    def step(carry, xs):
-        states, base = carry
-        t, row = xs  # row: [L, K+1]
-        q = states & qmask
-        sym = jnp.zeros_like(q)
-        cum = jnp.zeros_like(q)
-        right = jnp.zeros_like(q)
-        ge_prev = jnp.ones_like(q)
-        for j in range(1, K + 1):
-            delta = row[:, j] - row[:, j - 1]
-            right = right + delta * ge_prev
-            if j < K:
-                ge = (q >= row[:, j]).astype(jnp.uint32)
-                cum = cum + delta * ge
-                sym = sym + ge
-                ge_prev = ge
-        prob = right - cum
-        new_states = (states >> P) * prob + (q - cum)
-        if tail_start < L:
-            active = jnp.where(t < num_steps - 1, jnp.uint32(L), jnp.uint32(tail_start))
-            new_states = jnp.where(lanes < active, new_states, states)
-        states = new_states
-        m = states < lower
-        m32 = m.astype(jnp.uint32)
-        ranks = jnp.cumsum(m32) - m32
-        k = ranks[-1] + m32[-1]
-        chunk = jax.lax.dynamic_slice(stream_padded, (base,), (L,))
-        ex = _expand_monotone(chunk, lanes_n - ranks.astype(st_dtype), log_l)
-        states = jnp.where(m, (states << W) | ex.astype(jnp.uint32), states)
-        return (states, base + k.astype(jnp.int32)), sym.astype(out_dtype)
-
-    ts = jnp.arange(num_steps, dtype=jnp.int32)
-    (_, _), syms = jax.lax.scan(
-        step,
-        (jnp.asarray(init_states, dtype=jnp.uint32), jnp.int32(0)),
-        (ts, rows),
-    )
-    return syms.reshape(-1)
-
-
-def decode_shared_range(
-    points: jax.Array,  # u32[L] initial decoder points
-    stream: jax.Array,
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    num_steps: int,
-    num_symbols: int,
-    out_dtype=jnp.int32,
-) -> jax.Array:
-    """Gather-free i.i.d. decode for the shared-stream RANGE format
-    (ILANS2-R; see ops/interleaved2.py and codec.cpp).  Same machinery as the
-    rANS decoder -- contiguous slice + monotone butterfly -- with the range
-    coder's interval arithmetic (one u32 division per symbol)."""
-    assert cfg.state_bits == 32, "JAX range decoder runs at S=32 (native u32)"
-    assert points.shape[0] == cfg.num_lanes, (
-        f"points has {points.shape[0]} lanes but cfg.num_lanes is "
-        f"{cfg.num_lanes}"
-    )
-    L = points.shape[0]
-    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
-    log_l = _log2(L)
-    lower_bound = np.uint32(1 << (S - W))
-    lanes = jnp.arange(L, dtype=jnp.uint32)
-
-    narrow = W <= 16 and L <= (1 << 16)
-    st_dtype = jnp.uint16 if narrow else jnp.uint32
-    lanes_n = jnp.arange(L, dtype=st_dtype)
-    stream_padded = jnp.concatenate(
-        [jnp.asarray(stream).astype(st_dtype), jnp.zeros(L, dtype=st_dtype)]
-    )
-    tail_start = num_symbols - (num_steps - 1) * L if num_steps else 0
-
-    def step(carry, t):
-        lows, rngs, pts, base = carry
-        scale = rngs >> P
-        q = (pts - lows) // scale
-        sym, cum, prob = _compare_sum_qf(q, cdf)
-        new_lows = lows + scale * cum
-        new_rngs = scale * prob
-        if tail_start < L:
-            active = jnp.where(t < num_steps - 1, jnp.uint32(L), jnp.uint32(tail_start))
-            amask = lanes < active
-            new_lows = jnp.where(amask, new_lows, lows)
-            new_rngs = jnp.where(amask, new_rngs, rngs)
-        lows, rngs = new_lows, new_rngs
-        m = rngs < lower_bound
-        m32 = m.astype(jnp.uint32)
-        ranks = jnp.cumsum(m32) - m32
-        k = ranks[-1] + m32[-1]
-        chunk = jax.lax.dynamic_slice(stream_padded, (base,), (L,))
-        ex = _expand_monotone(chunk, lanes_n - ranks.astype(st_dtype), log_l)
-        lows = jnp.where(m, lows << W, lows)
-        rngs = jnp.where(m, rngs << W, rngs)
-        pts = jnp.where(m, (pts << W) | ex.astype(jnp.uint32), pts)
-        return (lows, rngs, pts, base + k.astype(jnp.int32)), sym.astype(out_dtype)
-
-    init = (
-        jnp.zeros(L, dtype=jnp.uint32),
-        jnp.full(L, 0xFFFFFFFF, dtype=jnp.uint32),
-        jnp.asarray(points, dtype=jnp.uint32),
-        jnp.int32(0),
-    )
-    (_, _, _, _), syms = jax.lax.scan(step, init, jnp.arange(num_steps, dtype=jnp.int32))
-    return syms.reshape(-1)
-
-
-def decode_shared_batched(
-    init_states: jax.Array,  # [B, L] u32
-    streams: jax.Array,  # [B, cap] (left-aligned per block)
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    num_steps: int,
-    block_len: int,
-    out_dtype=jnp.int32,
-) -> jax.Array:
-    """Gather-free decode of B independent ILANS2 blocks in one scan.
-
-    The per-step work of a single block underutilizes the VPU (the scan is
-    latency-bound); batching B blocks multiplies the independent work per
-    step.  All blocks must have `block_len` symbols (pad the message).
-    Returns [B, num_steps * L].
-    """
-    B, L = init_states.shape
-    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
-    log_l = _log2(L)
-    lower = np.uint32(1 << (S - W))
-    qmask = np.uint32((1 << P) - 1)
-    lanes = jnp.arange(L, dtype=jnp.uint32)[None, :]
-
-    narrow = W <= 16 and L <= (1 << 16)
-    st_dtype = jnp.uint16 if narrow else jnp.uint32
-    lanes_n = jnp.arange(L, dtype=st_dtype)[None, :]
-
-    streams_padded = jnp.concatenate(
-        [jnp.asarray(streams).astype(st_dtype), jnp.zeros((B, L), dtype=st_dtype)],
-        axis=1,
-    )
-    tail_start = block_len - (num_steps - 1) * L if num_steps else 0
-
-    def step(carry, t):
-        states, bases = carry  # [B, L], i32[B]
-        q = states & qmask
-        sym, cum, prob = _compare_sum_qf(q, cdf)
-        new_states = (states >> P) * prob + (q - cum)
-        if tail_start < L:
-            active = jnp.where(t < num_steps - 1, jnp.uint32(L), jnp.uint32(tail_start))
-            new_states = jnp.where(lanes < active, new_states, states)
-        states = new_states
-        m = states < lower
-        m32 = m.astype(jnp.uint32)
-        ranks = jnp.cumsum(m32, axis=1) - m32
-        k = ranks[:, -1] + m32[:, -1]
-        chunk = jnp.stack(
-            [
-                jax.lax.dynamic_slice(streams_padded[b], (bases[b],), (L,))
-                for b in range(B)
-            ]
-        )
-        d = lanes_n - ranks.astype(st_dtype)
-        ex = chunk
-        for b in range(log_l - 1, -1, -1):
-            ex = jnp.where((d >> b) & 1, jnp.roll(ex, 1 << b, axis=1), ex)
-        states = jnp.where(m, (states << W) | ex.astype(jnp.uint32), states)
-        return (states, bases + k.astype(jnp.int32)), sym.astype(out_dtype)
-
-    (_, _), syms = jax.lax.scan(
-        step,
-        (
-            jnp.asarray(init_states, dtype=jnp.uint32),
-            jnp.zeros(B, dtype=jnp.int32),
-        ),
-        jnp.arange(num_steps, dtype=jnp.int32),
-    )
-    # syms: [T, B, L] -> [B, T * L]
-    return jnp.swapaxes(syms, 0, 1).reshape(B, -1)
-
-
-def encode_shared_tables(
-    cums: jax.Array,  # [T, L] u32
-    probs: jax.Array,  # [T, L] u32
-    cfg: LaneConfig,
-    num_steps: int,
-    num_symbols: int,
-    max_stream: int,
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Gather-free encoder from per-symbol tables.
-
-    Returns ``(init_states u32[L], stream u32[max_stream], stream_len i32)``;
-    the stream is right-aligned in the buffer: valid words occupy
-    ``stream[max_stream - stream_len:]``.
-
-    ``max_stream`` must be at least ``num_steps * L + L`` (worst case one
-    word per lane per step, plus one L-window of slack for the aligned
-    stores).
-    """
-    L = cums.shape[1]
-    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
-    log_l = _log2(L)
-    seed = np.uint32(1 << (S - W))
-    wmask = np.uint32(cfg.word_mask)
-    lanes = jnp.arange(L, dtype=jnp.uint32)
-    static_n = isinstance(num_symbols, int)
-    tail_start = num_symbols - (num_steps - 1) * L if (static_n and num_steps) else 0
-
-    def step(carry, xs):
-        states, end, stream = carry
-        t, cp, pp = xs
-        if not static_n:
-            active_cnt = jnp.clip(
-                jnp.asarray(num_symbols, jnp.int32) - t * L, 0, L
-            ).astype(jnp.uint32)
-            active = lanes < active_cnt
-        elif tail_start < L:
-            active_cnt = jnp.where(t < num_steps - 1, jnp.uint32(L), jnp.uint32(tail_start))
-            active = lanes < active_cnt
+        st, base = carry
+        q = st & qmask
+        if P <= 16:
+            sym = lut[q.astype(jnp.int32)]
         else:
-            active = jnp.ones(L, dtype=bool)
-        renorm = active & ((states >> (S - P)) >= pp)
-        r32 = renorm.astype(jnp.uint32)
-        ranks = jnp.cumsum(r32) - r32
-        k = (ranks[-1] + r32[-1]).astype(jnp.int32)
-        vals = jnp.where(renorm, states & wmask, jnp.uint32(0))
-        d = lanes - ranks  # full monotone displacement (carried by the network)
-        compacted = _compact_monotone(vals, d, log_l)
-        # Write compacted[0..k) to stream[end-k, end): load the L-window
-        # [end-L, end), right-align the chunk inside it, store it back.
-        win_lo = end - L
-        window = jax.lax.dynamic_slice(stream, (win_lo,), (L,))
-        shifted = jnp.roll(compacted, L - k)
-        keep_new = jnp.arange(L, dtype=jnp.int32) >= (L - k)
-        window = jnp.where(keep_new, shifted, window)
-        stream = jax.lax.dynamic_update_slice(stream, window, (win_lo,))
-        states = jnp.where(renorm, states >> W, states)
-        new_states = ((states // pp) << P) | (cp + states % pp)
-        states = jnp.where(active, new_states, states)
-        return (states, end - k, stream), None
+            sym = jnp.searchsorted(
+                cdf_s, q, side="right", method="scan_unrolled"
+            ).astype(jnp.int32) - 1
+        cum = cdf_s[sym]
+        prob = cdf_s[sym + 1] - cum
+        new = (st >> P) * prob + (q - cum)
+        st = jnp.where(_active(t, nsym, T, L), new, st)
+        refill = st < lower
+        ranks, k = _excl_ranks(refill)
+        idx = base[:, None] + ranks
+        words = jnp.take_along_axis(streams, jnp.clip(idx, 0, cap - 1), axis=1)
+        words = jnp.where(idx < lens[:, None], words, 0).astype(dt)
+        st = jnp.where(refill, (st << W) | words, st)
+        return (st, base + k), sym
 
-    ts = jnp.arange(num_steps, dtype=jnp.int32)
-    init = (
-        jnp.full(L, seed, dtype=jnp.uint32),
-        jnp.int32(max_stream),
-        jnp.zeros(max_stream, dtype=jnp.uint32),
-    )
-    (states, end, stream), _ = jax.lax.scan(step, init, (ts, cums, probs), reverse=True)
-    stream_len = jnp.int32(max_stream) - end
-    return states, stream, stream_len
+    init = (jnp.asarray(states).astype(dt), jnp.zeros(B, jnp.int32))
+    (fin, _), syms = jax.lax.scan(step, init, jnp.arange(T, dtype=jnp.int32))
+    return jnp.swapaxes(syms, 0, 1).reshape(B, T * L), fin
 
 
-@partial(jax.jit, static_argnames=("cfg", "num_steps", "num_symbols", "cdf_tuple"))
-def _decode_jit(init_states, stream, cdf_tuple, cfg, num_steps, num_symbols):
-    cdf = np.asarray(cdf_tuple, dtype=np.uint64)
-    return decode_shared_compare_sum(
-        init_states, stream, cdf, cfg, num_steps, num_symbols
-    )
+def decode_shared_rows(init_states, stream, rows, cfg: LaneConfig,
+                       num_steps: int, num_symbols: int):
+    """Decode one block with a *different* categorical model per symbol:
+    ``rows`` [T, L, K+1] holds each slot's CDF row (inactive tail slots
+    need a valid row, e.g. full mass on symbol 0).  Returns int32[T*L]."""
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    dt = _state_dtype(cfg)
+    lower = dt(1 << (S - W))
+    qmask = dt((1 << P) - 1)
+    stream = jnp.asarray(stream, jnp.uint32)
+    cap = max(int(stream.shape[0]), 1)
+    stream = jnp.pad(stream, (0, cap - stream.shape[0]))
+    nsym = jnp.full((1,), num_symbols, jnp.int32)
+
+    def step(carry, xs):
+        st, base = carry
+        t, row = xs
+        row = row.astype(dt)
+        q = st & qmask
+        sym = jnp.sum(row[:, 1:-1] <= q[:, None], axis=1, dtype=jnp.int32)
+        cum = jnp.take_along_axis(row, sym[:, None], axis=1)[:, 0]
+        prob = jnp.take_along_axis(row, sym[:, None] + 1, axis=1)[:, 0] - cum
+        new = (st >> P) * prob + (q - cum)
+        st = jnp.where(_active(t, nsym, num_steps, L), new, st)
+        refill = st < lower
+        ranks, k = _excl_ranks(refill)
+        idx = base + ranks
+        words = jnp.where(idx < stream.shape[0],
+                          stream[jnp.clip(idx, 0, cap - 1)], 0).astype(dt)
+        st = jnp.where(refill, (st << W) | words, st)
+        return (st, base + k), sym
+
+    init = (jnp.asarray(init_states).astype(dt), jnp.int32(0))
+    _, syms = jax.lax.scan(
+        step, init, (jnp.arange(num_steps, dtype=jnp.int32), rows))
+    return syms.reshape(-1)
 
 
-def jax_decode_iid2(init_states, stream, cdf, cfg: LaneConfig, num_symbols: int):
-    """Convenience jitted entry (bakes the CDF into the program)."""
-    T = -(-num_symbols // cfg.num_lanes) if num_symbols else 0
-    cdf_tuple = tuple(int(x) for x in np.asarray(cdf))
-    return _decode_jit(
-        jnp.asarray(init_states, dtype=jnp.uint32),
-        jnp.asarray(stream, dtype=jnp.uint32),
-        cdf_tuple,
-        cfg,
-        T,
-        num_symbols,
-    )
+def encode_blocks(syms, seeds, cdf, nsym, *, cfg: LaneConfig, T: int):
+    """Encode B blocks from their encoder start states ``seeds``.  Returns
+    ``(buf u32[B, T*L], init_states [B, L], lens int32[B])``; block b's
+    words are ``buf[b, T*L - lens[b]:]`` (right-aligned)."""
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    dt = _state_dtype(cfg)
+    B = seeds.shape[0]
+    cap = T * L
+    wmask = dt((1 << W) - 1)
+    cdf_s = jnp.asarray(cdf).astype(dt)
+    syms = jnp.asarray(syms)
+    rows = jnp.arange(B, dtype=jnp.int32)[:, None]
+
+    def step(carry, xs):
+        st, end, buf = carry
+        t, s = xs
+        active = _active(t, nsym, T, L)
+        cum = cdf_s[s]
+        prob = jnp.where(active, cdf_s[s + 1] - cum, dt(1))
+        renorm = active & ((st >> (S - P)) >= prob)
+        ranks, k = _excl_ranks(renorm)
+        pos = jnp.where(renorm, end[:, None] - k[:, None] + ranks, cap)
+        buf = buf.at[rows, pos].set((st & wmask).astype(jnp.uint32),
+                                    mode="drop")
+        st = jnp.where(renorm, st >> W, st)
+        new = ((st // prob) << P) | (cum + st % prob)
+        st = jnp.where(active, new, st)
+        return (st, end - k, buf), None
+
+    xs = (jnp.arange(T, dtype=jnp.int32),
+          jnp.swapaxes(syms.reshape(B, T, L), 0, 1))
+    init = (jnp.asarray(seeds).astype(dt), jnp.full(B, cap, jnp.int32),
+            jnp.zeros((B, cap), jnp.uint32))
+    (st, end, buf), _ = jax.lax.scan(step, init, xs, reverse=True)
+    return buf, st, cap - end
+
+
+def lookup_table(cdf: np.ndarray, precision: int) -> np.ndarray:
+    """The 2^P quantile -> symbol table :func:`decode_blocks` gathers from
+    at P <= 16 (a one-entry placeholder above, where it searches)."""
+    if precision > 16:
+        return np.zeros(1, np.int32)
+    qs = np.arange(1 << precision, dtype=np.uint64)
+    return (np.searchsorted(np.asarray(cdf, np.uint64), qs, side="right")
+            - 1).astype(np.int32)

@@ -1,6 +1,6 @@
 """On-device entropy-model table building (jnp).
 
-TPU twin of models/categorical.fast_quantized_cdf (which mirrors
+Device twin of models/categorical.fast_quantized_cdf (which mirrors
 /root/reference/src/stream/model/categorical.rs:16-54): quantize a float PMF
 into the exactly-invertible leaky fixed-point CDF entirely on-device, so a
 model computed by a neural network never round-trips to the host before
@@ -68,33 +68,3 @@ def uniform_cdf_jax(size: int, precision: int) -> jax.Array:
     return jnp.concatenate(
         [left, jnp.full(1, np.uint32(1 << precision), jnp.uint32)]
     )
-
-
-def family_tables_jax(
-    symbols: jax.Array,
-    means: jax.Array,
-    scales: jax.Array,
-    family: str,
-    min_sym: int,
-    max_sym: int,
-    precision: int = 12,
-):
-    """(cum, prob) u32 arrays for the device-native quantized families —
-    the jnp twin of pallas_family.family_tables_host (bit-identical: the
-    integer CDF math is backend-invariant)."""
-    from . import pallas_family as pf
-
-    free = (1 << precision) - 1 - (max_sym - min_sym)
-    left = pf._left_fn(family, min_sym, precision, free)
-    sym = jnp.asarray(symbols, jnp.int32)
-    mean = jnp.asarray(means, jnp.float32)
-    inv_scale = jnp.float32(1.0) / jnp.asarray(scales, jnp.float32)
-    lo = jnp.where(
-        sym == np.int32(min_sym), 0, left(sym, mean, inv_scale, xp=jnp)
-    )
-    hi = jnp.where(
-        sym == np.int32(max_sym),
-        np.int32(1 << precision),
-        left(sym + 1, mean, inv_scale, xp=jnp),
-    )
-    return lo.astype(jnp.uint32), (hi - lo).astype(jnp.uint32)

@@ -12,21 +12,13 @@ from .container import (
 )
 from .sharding import (
     BLOCK_AXIS,
-    shard_decode_exact_family_pallas,
-    shard_decode_family_pallas,
-    shard_decode_range_pallas,
-    shard_tchain_decode_pallas,
     gather_blocks,
     make_mesh,
     prepare_blocks,
     shard_decode2,
-    shard_decode2_pallas,
-    shard_decode64_pallas,
-    shard_decode_range64_pallas,
     shard_decode_lookup,
     shard_encode,
     shard_encode2,
-    shard_encode2_pallas,
 )
 
 __all__ = [
@@ -43,15 +35,7 @@ __all__ = [
     "make_mesh",
     "prepare_blocks",
     "shard_decode2",
-    "shard_decode2_pallas",
-    "shard_decode64_pallas",
-    "shard_decode_range64_pallas",
     "shard_decode_lookup",
     "shard_encode",
     "shard_encode2",
-    "shard_encode2_pallas",
-    "shard_decode_exact_family_pallas",
-    "shard_decode_family_pallas",
-    "shard_decode_range_pallas",
-    "shard_tchain_decode_pallas",
 ]

@@ -13,10 +13,11 @@ are exactly coder snapshots.
 All blocks share one static kernel shape (the message is zero-padded to
 ``num_blocks * block_len`` symbols; the true length is in the header), so the
 whole mesh runs a single SPMD program: `shard_map` over the block axis, each
-device encoding/decoding ``num_blocks / D`` blocks with the Pallas kernels,
-followed by an in-order `all_gather` of per-block stream lengths, states and
-payloads over ICI/DCN so every device (and the host, with one transfer)
-holds the complete container.
+device encoding/decoding ``num_blocks / D`` blocks with the device coder
+(ops/device_coder.py), followed by an in-order `all_gather` of per-block
+stream lengths, states and payloads (over NVLink between the cards of one
+host) so every device (and the host, with one transfer) holds the complete
+container.
 
 Container layout (u32 words):
 
@@ -53,7 +54,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..ops import device_coder
 from ..ops import interleaved2 as il2
+from ..ops import route
 from ..ops.interleaved import LaneConfig
 
 MAGIC_S = 0x494C4E53
@@ -381,6 +384,34 @@ def _pick_device_count(B: int, mesh=None) -> int:
     return d
 
 
+def _block_mesh(B: int, mesh=None):
+    """The mesh the B blocks are spread over: the largest device count
+    that divides B (None when that is one device)."""
+    from .sharding import make_mesh
+
+    D = _pick_device_count(B, mesh)
+    if D == 1:
+        return None
+    if mesh is None or len(mesh.devices.reshape(-1)) != D:
+        mesh = make_mesh(D)
+    return mesh
+
+
+def _use_device(device, mesh, coder_id: int) -> bool:
+    """Resolve ``device=None``: the device coder on a GPU or when a mesh is
+    given, the host loop otherwise.  Range containers are host-only."""
+    if coder_id == CODER_RANGE:
+        if device:
+            raise ValueError(
+                "range containers are coded on the host; the device coder "
+                "covers rANS (coder='rans')"
+            )
+        return False
+    if device is None:
+        return route.on_accelerator() or mesh is not None
+    return bool(device)
+
+
 def encode(
     symbols,
     cdf,
@@ -393,15 +424,18 @@ def encode(
 ) -> np.ndarray:
     """Encode ``symbols`` into a sharded container in ONE call.
 
-    ``device=True`` (default on TPU / when a mesh is given) runs the Pallas
-    encoder data-parallel over the mesh with an in-order all_gather of the
-    per-block results; ``device=False`` runs the bit-identical host loop.
-    The container bytes do not depend on the mesh shape.
+    ``device=True`` (the default on a GPU or when a mesh is given) runs the
+    device encoder (ops/device_coder.py) data-parallel over the mesh with an
+    in-order all_gather of the per-block results; ``device=False`` runs the
+    bit-identical host loop.  The container bytes do not depend on the mesh
+    shape.
 
     ``coder`` selects the per-block stream coder: ``"rans"`` (stack
     semantics; default) or ``"range"`` (queue semantics -- each block is an
     ILANS2-R unit whose stored states are the decoder point headers,
     queue.rs:847-868).  :func:`decode` reads the choice from the header.
+    Range containers are coded on the host: ``device=True`` with
+    ``coder="range"`` is rejected.
 
     ``compact=True`` (rANS only) emits the v2 sharded framing:
     variable-width packed block states plus a pooled-tail seed recovery
@@ -420,6 +454,7 @@ def encode(
             "seed-recovery identity; its point headers must ship raw)"
         )
     coder_id = _CODER_IDS[coder]
+    device = _use_device(device, mesh, coder_id)
     if num_blocks < 1:
         raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
     symbols = np.asarray(symbols, dtype=np.int64)
@@ -468,21 +503,11 @@ def encode(
     padded = np.full(B * block_len, pad_sym, dtype=np.int64)
     padded[:n_blocks_syms] = symbols[:n_blocks_syms]
 
-    if device is None:
-        import jax
-
-        device = jax.default_backend() == "tpu" or mesh is not None
-    if device and il2._pallas_eligible(cfg):
-        if coder_id == CODER_RANGE:
-            enc_dev = (_encode_blocks_device_range64 if cfg.state_bits > 32
-                       else _encode_blocks_device_range)
-            states, streams = enc_dev(padded, cdf, cfg, B, block_len, mesh)
-        else:
-            enc_dev = (_encode_blocks_device64 if cfg.state_bits > 32
-                       else _encode_blocks_device)
-            states, streams = enc_dev(
-                padded, cdf, cfg, B, block_len, mesh, seeds=seeds
-            )
+    if device and device_coder.supports(cfg):
+        states, streams = device_coder.encode_blocks(
+            padded.reshape(B, block_len), cdf, cfg, seeds=seeds,
+            mesh=_block_mesh(B, mesh),
+        )
     else:
         from ..ops.interleaved import _state_dtype
 
@@ -526,18 +551,12 @@ def decode(
             f"container's header precision), got {int(np.asarray(cdf)[-1])}"
         )
     B = len(streams)
-    if device is None:
-        import jax
-
-        device = jax.default_backend() == "tpu" or mesh is not None
-    if device and il2._pallas_eligible(cfg):
-        if coder_id == CODER_RANGE:
-            dec_dev = (_decode_blocks_device_range64 if cfg.state_bits > 32
-                       else _decode_blocks_device_range)
-        else:
-            dec_dev = (_decode_blocks_device64 if cfg.state_bits > 32
-                       else _decode_blocks_device)
-        out = dec_dev(states, streams, cdf, cfg, block_len, mesh)
+    device = _use_device(device, mesh, coder_id)
+    if device and device_coder.supports(cfg):
+        out, _ = device_coder.decode_blocks(
+            states, streams, block_len, cdf, cfg, mesh=_block_mesh(B, mesh)
+        )
+        out = out.reshape(-1)
     elif coder_id == CODER_RANGE:
         out = np.concatenate(
             [
@@ -569,22 +588,12 @@ def _decode_v2(data, cdf, mesh=None, device=None):
         )
     B = len(streams)
     n_A = n - k_tail
-    if device is None:
-        import jax
-
-        device = jax.default_backend() == "tpu" or mesh is not None
-    if device and il2._pallas_eligible(cfg):
-        dec_dev = (_decode_blocks_device64 if cfg.state_bits > 32
-                   else _decode_blocks_device)
-        out, fin_planes = dec_dev(
-            states, streams, cdf, cfg, block_len, mesh, want_final=True
+    device = _use_device(device, mesh, CODER_RANS)
+    if device and device_coder.supports(cfg):
+        out, fin = device_coder.decode_blocks(
+            states, streams, block_len, cdf, cfg, mesh=_block_mesh(B, mesh)
         )
-        if cfg.state_bits > 32:
-            fin = (fin_planes[0].astype(np.uint64) << np.uint64(32)) | (
-                fin_planes[1].astype(np.uint64)
-            )
-        else:
-            fin = fin_planes[0]
+        out = out.reshape(-1)
     else:
         outs, fins = [], []
         for b in range(B):
@@ -603,413 +612,6 @@ def _decode_v2(data, cdf, mesh=None, device=None):
         fin, cdf, cfg, B, k_tail, tail_words, spill, device
     )
     return np.concatenate([out, tail])
-
-
-# ---------------------------------------------------------------------------
-# Device (shard_map + Pallas) block codecs
-# ---------------------------------------------------------------------------
-
-
-def _device_geometry(B, cfg, block_len, mesh):
-    """Shared prep for the device block codecs: pick the device count,
-    (re)make the mesh, and compute the static kernel geometry.  Returns
-    (mesh, D, interpret, L, R, T, tail, cap_rows)."""
-    import jax
-
-    from ..ops import pallas_coder as pc
-    from .sharding import make_mesh
-
-    D = _pick_device_count(B, mesh)
-    if mesh is None or len(mesh.devices.reshape(-1)) != D:
-        mesh = make_mesh(D)
-    interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    return mesh, D, interpret, L, R, T, tail, T * R + 1
-
-
-def _stack_streams(streams, R):
-    """Pad each block's word stream to the kernel's [rows, 128] window
-    layout (pc._stream_rows) and stack them to one [B, rows, 128] numpy
-    array -- pure host math, no device transfers."""
-    from ..ops import pallas_coder as pc
-
-    rows = max(pc._stream_rows(len(s), R) for s in streams)
-    arr = np.zeros((len(streams), rows, pc.LANES), np.uint32)
-    for b, s in enumerate(streams):
-        arr[b].reshape(-1)[: len(s)] = np.asarray(s, np.uint32)
-    return arr, rows
-
-
-# The four coder variants (rANS / range x 32-bit / DEFAULT-preset 64-bit)
-# share one SPMD driver each for encode and decode; they differ only in the
-# per-block kernel call, the number of u32 state planes (S <= 32 stores one
-# plane, S = 64 stores (hi, lo)), and whether the kernel reports an
-# invalid-data flag (range decoders only -- rANS decode is total).
-
-
-def _encode_blocks_generic(padded, cfg, B, block_len, mesh, make_encode_one,
-                           n_state_planes, cap_rows_of, seed_planes=None):
-    """Shared SPMD encode driver: shard blocks over the mesh, run the
-    per-block kernel, all_gather the results in block order (rides ICI in a
-    slice / DCN across hosts).  ``make_encode_one(geometry)`` returns a
-    per-block function ``s -> (*state_planes, buf, end)`` (with
-    ``seed_planes`` given -- a list of [B, L] u32 arrays carrying per-lane
-    encoder start states, the sharded v2 pooled-tail payload --
-    ``(s, *seed_tiles) -> ...``)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from ..ops import pallas_coder as pc
-    from .sharding import BLOCK_AXIS
-
-    geom = _device_geometry(B, cfg, block_len, mesh)
-    mesh, D, interpret, L, R, T, tail, cap_rows = geom
-    cap_rows = cap_rows_of(geom)
-    encode_one = make_encode_one(geom)
-    pad = T * L - block_len
-    bpd = B // D  # blocks per device
-    n_seed = len(seed_planes) if seed_planes is not None else 0
-
-    def per_device(syms_b, *seeds_b):
-        outs = []
-        for i in range(bpd):
-            s = syms_b[0, i]
-            if pad:
-                s = jnp.concatenate([s, jnp.zeros(pad, jnp.int32)])
-            extra = [sb[0, i].reshape(R, pc.LANES) for sb in seeds_b]
-            outs.append(encode_one(s.reshape(T, R, pc.LANES), *extra))
-        stacked = [jnp.stack([o[k] for o in outs])
-                   for k in range(n_state_planes + 2)]
-        gathered = [jax.lax.all_gather(x, BLOCK_AXIS) for x in stacked]
-        return tuple(
-            [g.reshape(B, L) for g in gathered[:n_state_planes]]
-            + [gathered[n_state_planes].reshape(B, -1),
-               gathered[n_state_planes + 1].reshape(B, 2)]
-        )
-
-    fn = jax.shard_map(
-        per_device,
-        mesh=mesh,
-        in_specs=tuple(P(BLOCK_AXIS) for _ in range(1 + n_seed)),
-        out_specs=tuple(P() for _ in range(n_state_planes + 2)),
-        check_vma=False,
-    )
-    syms = jnp.asarray(padded.reshape(D, bpd, block_len), jnp.int32)
-    seed_args = [
-        jnp.asarray(sp.reshape(D, bpd, L)) for sp in (seed_planes or [])
-    ]
-    results = [np.asarray(x) for x in fn(syms, *seed_args)]
-    planes, bufs, ends = (
-        results[:n_state_planes], results[n_state_planes],
-        results[n_state_planes + 1],
-    )
-    if n_state_planes == 2:  # (hi, lo) -> u64
-        states = (planes[0].astype(np.uint64) << np.uint64(32)) | (
-            planes[1].astype(np.uint64)
-        )
-    else:
-        states = planes[0]
-    streams = [
-        bufs[b, ends[b, 0] : cap_rows * pc.LANES].copy() for b in range(B)
-    ]
-    return states, streams
-
-
-def _decode_blocks_generic(state_planes, streams, cfg, block_len, mesh,
-                           make_decode_one, has_bad, want_final=False):
-    """Shared SPMD decode driver: ``make_decode_one(geometry)`` returns a
-    per-block function ``(*plane_slices, stream) -> (syms, fin_planes,
-    bad-or-None)`` where ``fin_planes`` is a tuple of final lane-state
-    planes (empty when the kernel has none to give);
-    ``state_planes`` is a list of [B, L] u32 arrays.  With
-    ``want_final=True`` returns ``(symbols, [B, L] final planes list)`` --
-    the sharded v2 pooled-tail payload recovery."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from ..ops import pallas_coder as pc
-    from .sharding import BLOCK_AXIS
-
-    B = len(streams)
-    geom = _device_geometry(B, cfg, block_len, mesh)
-    mesh, D, interpret, L, R, T, tail, _cap = geom
-    decode_one = make_decode_one(geom)
-    streams_arr, rows = _stack_streams(streams, R)
-    bpd = B // D
-    n_planes = len(state_planes)
-    n_fin = n_planes if want_final else 0
-
-    def per_device(*args):
-        plane_bs, stream_b = args[:n_planes], args[n_planes]
-        outs, bads, fins = [], [], []
-        for i in range(bpd):
-            syms, fin, bad = decode_one(
-                *[pb[0, i].reshape(R, pc.LANES) for pb in plane_bs],
-                stream_b[0, i],
-            )
-            outs.append(syms.reshape(-1)[:block_len])
-            if want_final:
-                fins.append([f.reshape(-1) for f in fin])
-            if has_bad:
-                bads.append(bad[:1])
-        res = [jnp.stack(outs)[None]]
-        for k in range(n_fin):
-            res.append(jnp.stack([f[k] for f in fins])[None])
-        if has_bad:
-            res.append(jnp.stack(bads)[None])
-        return tuple(res) if len(res) > 1 else res[0]
-
-    n_out = 1 + n_fin + (1 if has_bad else 0)
-    fn = jax.shard_map(
-        per_device,
-        mesh=mesh,
-        in_specs=tuple(P(BLOCK_AXIS) for _ in range(n_planes + 1)),
-        out_specs=(
-            tuple(P(BLOCK_AXIS) for _ in range(n_out)) if n_out > 1
-            else P(BLOCK_AXIS)
-        ),
-        check_vma=False,
-    )
-    res = fn(
-        *[jnp.asarray(pl.reshape(D, bpd, L)) for pl in state_planes],
-        jnp.asarray(streams_arr.reshape(D, bpd, rows, pc.LANES)),
-    )
-    if n_out == 1:
-        res = (res,)
-    out = res[0]
-    fin_planes = [
-        np.asarray(res[1 + k]).reshape(B, L) for k in range(n_fin)
-    ]
-    if has_bad:
-        bad = res[1 + n_fin]
-        if int(np.asarray(bad).max()):
-            raise ValueError(
-                "compressed data inconsistent with the entropy model "
-                "(quantile >= 2^precision)"
-            )
-    if want_final:
-        return np.asarray(out).reshape(-1), fin_planes
-    return np.asarray(out).reshape(-1)
-
-
-def _split_u64(states):
-    st = np.asarray(states, dtype=np.uint64)
-    return [(st >> np.uint64(32)).astype(np.uint32),
-            (st & np.uint64(0xFFFFFFFF)).astype(np.uint32)]
-
-
-def _encode_blocks_device(padded, cdf, cfg, B, block_len, mesh,
-                          seeds=None):
-    from ..ops import pallas_coder as pc
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-    seeded = seeds is not None
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, cap_rows = geom
-        fn_k = pc._build_encoder(cdf_t, cfg, T, tail, L, cap_rows,
-                                 interpret, seeded=seeded)
-
-        def encode_one(s3, *seed_tiles):
-            buf, states, end = fn_k(s3, *seed_tiles)
-            return states.reshape(-1), buf.reshape(-1), end
-
-        return encode_one
-
-    seed_planes = None
-    if seeded:
-        seed_planes = [np.asarray(seeds, np.uint32)]
-    return _encode_blocks_generic(
-        padded, cfg, B, block_len, mesh, make, 1, lambda g: g[7],
-        seed_planes=seed_planes,
-    )
-
-
-def _decode_blocks_device(states, streams, cdf, cfg, block_len, mesh,
-                          want_final=False):
-    from ..ops import pallas_coder as pc
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, _cap = geom
-        fn_k = pc._build_decoder(cdf_t, cfg, T, tail, L, interpret)
-
-        def decode_one(st, stream):
-            syms, fin = fn_k(st, stream)
-            return syms, (fin,), None
-
-        return decode_one
-
-    return _decode_blocks_generic(
-        [np.asarray(states, np.uint32)], streams, cfg, block_len, mesh,
-        make, has_bad=False, want_final=want_final,
-    )
-
-
-def _encode_blocks_device64(padded, cdf, cfg, B, block_len, mesh,
-                            seeds=None):
-    """Default-preset (S=64) twin: ILANS2-64 encoder per block, lane states
-    gathered as (hi, lo) planes and repacked to u64."""
-    from ..ops import pallas_coder64 as pc64
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-    seeded = seeds is not None
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, cap_rows = geom
-        fn_k = pc64._build_encoder64(
-            cdf_t, cfg, T, tail, L, cap_rows, interpret, seeded=seeded
-        )
-
-        def encode_one(s3, *seed_tiles):
-            buf, hi, lo, end = fn_k(s3, *seed_tiles)
-            return hi.reshape(-1), lo.reshape(-1), buf.reshape(-1), end
-
-        return encode_one
-
-    seed_planes = None
-    if seeded:
-        sd = np.asarray(seeds, np.uint64)
-        seed_planes = [
-            (sd >> np.uint64(32)).astype(np.uint32),
-            (sd & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-        ]
-    return _encode_blocks_generic(
-        padded, cfg, B, block_len, mesh, make, 2, lambda g: g[7],
-        seed_planes=seed_planes,
-    )
-
-
-def _decode_blocks_device64(states, streams, cdf, cfg, block_len, mesh,
-                            want_final=False):
-    from ..ops import pallas_coder64 as pc64
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, _cap = geom
-        fn_k = pc64._build_decoder64(cdf_t, cfg, T, tail, L, interpret)
-
-        def decode_one(hi, lo, stream):
-            syms, fhi, flo = fn_k(hi, lo, stream)
-            return syms, (fhi, flo), None
-
-        return decode_one
-
-    return _decode_blocks_generic(
-        _split_u64(states), streams, cfg, block_len, mesh, make,
-        has_bad=False, want_final=want_final,
-    )
-
-
-def _encode_blocks_device_range(padded, cdf, cfg, B, block_len, mesh):
-    """Range-coder (ILANS2-R) variant: the two-phase Pallas range encoder
-    per block, with the closed-form per-lane seal (queue.rs:458-523)
-    computed in jnp between the phases so the whole mesh step stays one
-    SPMD program."""
-    import jax.numpy as jnp
-
-    from ..ops import pallas_range_enc as pre
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-    S, W = cfg.state_bits, cfg.word_bits
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, _cap = geom
-        rec_fn = pre._build_range_recorder(cdf_t, cfg, T, tail, L, interpret)
-        res_fn = pre._build_range_resolver(T, L, interpret)
-
-        def encode_one(s3):
-            records, low_f, rng_f = rec_fn(s3)
-            s0, seal_carry = pre.seal32(jnp, low_f, rng_f, S, W)
-            buf, hdr, end = res_fn(records, s0, seal_carry)
-            return hdr.reshape(-1), buf.reshape(-1), end
-
-        return encode_one
-
-    return _encode_blocks_generic(
-        padded, cfg, B, block_len, mesh, make, 1, lambda g: g[7]
-    )
-
-
-def _encode_blocks_device_range64(padded, cdf, cfg, B, block_len, mesh):
-    """Default-preset (ILANS2-R64) variant: u32-pair lane registers, point
-    headers gathered as (hi, lo) planes and repacked to u64."""
-    import jax.numpy as jnp
-
-    from ..ops import pallas_range_enc as pre
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, _cap = geom
-        rec_fn = pre._build_range_recorder64(
-            cdf_t, cfg, T, tail, L, interpret
-        )
-        res_fn = pre._build_range_resolver64(T, L, interpret)
-
-        def encode_one(s3):
-            records, flags, lhi_f, llo_f, rhi_f, rlo_f = rec_fn(s3)
-            s0, seal_carry = pre.seal64_limbs(
-                jnp, lhi_f, llo_f, rhi_f, rlo_f
-            )
-            buf, hdr_hi, hdr_lo, end = res_fn(records, flags, s0, seal_carry)
-            return (hdr_hi.reshape(-1), hdr_lo.reshape(-1),
-                    buf.reshape(-1), end)
-
-        return encode_one
-
-    return _encode_blocks_generic(
-        padded, cfg, B, block_len, mesh, make, 2, lambda g: g[7]
-    )
-
-
-def _decode_blocks_device_range(states, streams, cdf, cfg, block_len, mesh):
-    from ..ops import pallas_coder as pc
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, _cap = geom
-        fn_k = pc._build_range_decoder(cdf_t, cfg, T, tail, L, interpret)
-
-        def decode_one(pts, stream):
-            syms, _pts, bad = fn_k(pts, stream)
-            return syms, (), bad
-
-        return decode_one
-
-    return _decode_blocks_generic(
-        [np.asarray(states, np.uint32)], streams, cfg, block_len, mesh,
-        make, has_bad=True,
-    )
-
-
-def _decode_blocks_device_range64(states, streams, cdf, cfg, block_len, mesh):
-    from ..ops import pallas_coder64 as pc64
-
-    cdf_t = tuple(int(x) for x in np.asarray(cdf))
-
-    def make(geom):
-        _mesh, _D, interpret, L, _R, T, tail, _cap = geom
-        fn_k = pc64._build_range_decoder64(cdf_t, cfg, T, tail, L, interpret)
-
-        def decode_one(hi, lo, stream):
-            syms, _phi, _plo, bad = fn_k(hi, lo, stream)
-            return syms, (), bad
-
-        return decode_one
-
-    return _decode_blocks_generic(
-        _split_u64(states), streams, cfg, block_len, mesh, make,
-        has_bad=True,
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -1123,10 +725,11 @@ def decode_block_from_checkpoint(
         )
     if coder_id == CODER_RANGE:
         lows, rngs, pts = states
+        if device:
+            raise ValueError("range containers are decoded on the host")
         rel_start, suffix = il2.decode_range_from_checkpoint(
             ckpt_index, offsets[block], lows[block], rngs[block],
             pts[block], streams[block], nb, cdf, cfg, interval,
-            device=device,
         )
         return block * block_len + rel_start, suffix
     rel_start, suffix = il2.decode_from_checkpoint(

@@ -2,10 +2,11 @@
 
 The message is split into ``D`` independent blocks (one per device along the
 ``"blocks"`` mesh axis); each device encodes/decodes its block's ``L`` lanes
-locally with the jittable kernels from :mod:`constriction_tpu.ops.jax_coder`.
+locally with the jittable coders of :mod:`constriction_tpu.ops.jax_coder`
+(ILANS v1) or :mod:`constriction_tpu.ops.device_coder` (ILANS2).
 No cross-device communication happens in the hot loop -- the only collectives
 are the in-order gather of per-block word counts and payloads at the end
-(``jax.lax.all_gather`` rides ICI within a slice / DCN across hosts), which
+(``jax.lax.all_gather``, over NVLink between the cards of one host), which
 replaces the reference's pluggable word-stream backend seam
 (/root/reference/src/backends.rs:200-269) with a sharded device-array backend.
 
@@ -116,244 +117,30 @@ def gather_blocks(mesh: Mesh, words: jax.Array, counts: jax.Array):
 
 
 # ---------------------------------------------------------------------------
-# ILANS v2 (shared-stream, gather-free) block sharding
+# ILANS v2 (shared-stream) block sharding through the device coder
 # ---------------------------------------------------------------------------
 
 
-def shard_encode2(
-    mesh: Mesh,
-    cums: jax.Array,  # [D, T, L] u32
-    probs: jax.Array,  # [D, T, L] u32
-    block_lens: jax.Array,  # i32[D]
-    cfg: LaneConfig,
-    num_steps: int,
-    max_stream: int,
-):
-    """Encode D independent ILANS2 blocks in parallel.
+def shard_encode2(mesh: Mesh, symbols, cdf: np.ndarray, cfg: LaneConfig,
+                  seeds=None):
+    """Encode B equal-length ILANS2 blocks (``symbols`` [B, block_len])
+    over ``mesh``, B divisible by its device count.  Returns
+    ``(init_states [B, L], streams)`` gathered in block order; the
+    implementation is the route's (ops/route.py)."""
+    from ..ops import device_coder
 
-    Returns (init_states [D, L], streams [D, max_stream] right-aligned,
-    stream_lens [D]), sharded along the block axis.
-    """
-    from ..ops import jax_coder2 as jc2
-
-    def per_block(cums_b, probs_b, len_b):
-        st, stream, slen = jc2.encode_shared_tables(
-            cums_b[0], probs_b[0], cfg, num_steps, len_b[0], max_stream
-        )
-        return st[None], stream[None], slen[None]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        check_vma=False,
-    )
-    return fn(cums, probs, block_lens.reshape(-1, 1))
+    return device_coder.encode_blocks(symbols, cdf, cfg, seeds=seeds,
+                                      mesh=mesh)
 
 
-def shard_decode2(
-    mesh: Mesh,
-    init_states: jax.Array,  # [D, L]
-    streams: jax.Array,  # [D, stream_cap] left-aligned per block
-    block_lens: jax.Array,  # i32[D]
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    num_steps: int,
-):
-    """Decode D ILANS2 blocks in parallel with a shared (baked-in) CDF."""
-    from ..ops import jax_coder2 as jc2
+def shard_decode2(mesh: Mesh, init_states, streams, cdf: np.ndarray,
+                  cfg: LaneConfig, block_len: int):
+    """Decode B equal-length ILANS2 blocks over ``mesh``.  Returns
+    ``(symbols [B, block_len], final_states [B, L])``."""
+    from ..ops import device_coder
 
-    cdf = np.asarray(cdf, dtype=np.uint64)
-
-    def per_block(st_b, stream_b, len_b):
-        syms = jc2.decode_shared_compare_sum(
-            st_b[0], stream_b[0], cdf, cfg, num_steps, len_b[0, 0]
-        )
-        return syms[None]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=P(BLOCK_AXIS),
-        check_vma=False,
-    )
-    return fn(init_states, streams, block_lens.reshape(-1, 1))
-
-
-# ---------------------------------------------------------------------------
-# Pallas-kernel block sharding (the flagship per-chip path, data-parallel)
-# ---------------------------------------------------------------------------
-
-
-def shard_decode2_pallas(
-    mesh: Mesh,
-    init_states: jax.Array,  # [D, L] u32
-    streams2d: jax.Array,  # [D, rows, 128] u32 (padded, see pallas_coder)
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    block_len: int,
-    interpret: Optional[bool] = None,
-):
-    """Decode D equal-length ILANS2 blocks in parallel, one Pallas kernel
-    per device.  All blocks carry ``block_len`` symbols (pad the message);
-    SPMD requires the same static shape on every device.  Returns
-    [D, block_len] i32 sharded along blocks."""
-    from ..ops import pallas_coder as pc
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    fn_k = pc._build_decoder(
-        tuple(int(x) for x in np.asarray(cdf)), cfg, T, tail, L, interpret
-    )
-
-    def per_block(st_b, stream_b):
-        syms, _ = fn_k(st_b[0].reshape(R, pc.LANES), stream_b[0])
-        return syms.reshape(-1)[None, :block_len]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=P(BLOCK_AXIS),
-        check_vma=False,
-    )
-    return fn(init_states, streams2d)
-
-
-def shard_decode64_pallas(
-    mesh: Mesh,
-    states_hi: jax.Array,  # [D, L] u32 (lane-state high words)
-    states_lo: jax.Array,  # [D, L] u32
-    streams2d: jax.Array,  # [D, rows, 128] u32
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    block_len: int,
-    interpret: Optional[bool] = None,
-):
-    """Default-preset (W=32/S=64/P<=24) twin of :func:`shard_decode2_pallas`:
-    decode D equal-length ILANS2-64 blocks in parallel, one
-    ops/pallas_coder64.py kernel per device."""
-    from ..ops import pallas_coder as pc
-    from ..ops import pallas_coder64 as pc64
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    fn_k = pc64._build_decoder64(
-        tuple(int(x) for x in np.asarray(cdf)), cfg, T, tail, L, interpret
-    )
-
-    def per_block(hi_b, lo_b, stream_b):
-        syms, _hi, _lo = fn_k(
-            hi_b[0].reshape(R, pc.LANES), lo_b[0].reshape(R, pc.LANES),
-            stream_b[0],
-        )
-        return syms.reshape(-1)[None, :block_len]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=P(BLOCK_AXIS),
-        check_vma=False,
-    )
-    return fn(states_hi, states_lo, streams2d)
-
-
-def shard_decode_range64_pallas(
-    mesh: Mesh,
-    points_hi: jax.Array,  # [D, L] u32 (point high words)
-    points_lo: jax.Array,  # [D, L] u32
-    streams2d: jax.Array,  # [D, rows, 128] u32
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    block_len: int,
-    interpret: Optional[bool] = None,
-):
-    """Default-preset (ILANS2-R64) twin of :func:`shard_decode_range_pallas`:
-    D equal-length range-coded blocks decoded in parallel.  Returns
-    ``([D, block_len] i32, [D] i32 invalid-data flags)``."""
-    from ..ops import pallas_coder as pc
-    from ..ops import pallas_coder64 as pc64
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    fn_k = pc64._build_range_decoder64(
-        tuple(int(x) for x in np.asarray(cdf)), cfg, T, tail, L, interpret
-    )
-
-    def per_block(hi_b, lo_b, stream_b):
-        syms, _phi, _plo, bad = fn_k(
-            hi_b[0].reshape(R, pc.LANES), lo_b[0].reshape(R, pc.LANES),
-            stream_b[0],
-        )
-        return syms.reshape(-1)[None, :block_len], bad[:1]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        check_vma=False,
-    )
-    return fn(points_hi, points_lo, streams2d)
-
-
-def shard_encode2_pallas(
-    mesh: Mesh,
-    symbols: jax.Array,  # [D, block_len] i32
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    interpret: Optional[bool] = None,
-):
-    """Encode D equal-length symbol blocks in parallel with the Pallas
-    encoder.  Returns (init_states [D, L], stream_bufs [D, cap_rows+R+2, 128],
-    ends [D, 2]) sharded along blocks; block d's words are
-    ``stream_bufs[d].reshape(-1)[ends[d, 0] : cap_rows * 128]``."""
-    from ..ops import pallas_coder as pc
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    D, block_len = symbols.shape
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    cap_rows = T * R + 1
-    fn_k = pc._build_encoder(
-        tuple(int(x) for x in np.asarray(cdf)), cfg, T, tail, L, cap_rows,
-        interpret,
-    )
-    pad = T * L - block_len
-
-    def per_block(syms_b):
-        s = syms_b[0]
-        if pad:
-            s = jnp.concatenate([s, jnp.zeros(pad, jnp.int32)])
-        buf, states, end = fn_k(s.reshape(T, R, pc.LANES))
-        return states.reshape(-1)[None], buf[None], end[None]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS),),
-        out_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        check_vma=False,
-    )
-    return fn(symbols.astype(jnp.int32))
+    return device_coder.decode_blocks(init_states, streams, block_len, cdf,
+                                      cfg, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -387,162 +174,3 @@ def prepare_blocks(
         lens,
         T,
     )
-
-
-def shard_decode_range_pallas(
-    mesh: Mesh,
-    points: jax.Array,  # [D, L] u32
-    streams2d: jax.Array,  # [D, rows, 128] u32
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    block_len: int,
-    interpret: Optional[bool] = None,
-):
-    """ILANS2-R twin of :func:`shard_decode2_pallas`: D equal-length range
-    blocks in parallel.  Returns (symbols [D, block_len] i32,
-    invalid [D] i32)."""
-    from ..ops import pallas_coder as pc
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    fn_k = pc._build_range_decoder(
-        tuple(int(x) for x in np.asarray(cdf)), cfg, T, tail, L, interpret
-    )
-
-    def per_block(pt_b, stream_b):
-        syms, _pts, bad = fn_k(pt_b[0].reshape(R, pc.LANES), stream_b[0])
-        return syms.reshape(-1)[None, :block_len], bad[:1]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        check_vma=False,
-    )
-    return fn(points, streams2d)
-
-
-def shard_decode_family_pallas(
-    mesh: Mesh,
-    init_states: jax.Array,  # [D, L] u32
-    params: jax.Array,  # [D, T, 2, R, 128] f32 (mean, scale)
-    streams2d: jax.Array,  # [D, rows, 128] u32
-    family: str,
-    min_sym: int,
-    max_sym: int,
-    cfg: LaneConfig,
-    block_len: int,
-    interpret: Optional[bool] = None,
-):
-    """Per-symbol continuous-family decode, data-parallel over blocks
-    (each block has its own per-symbol (mean, scale) streams)."""
-    from ..ops import pallas_coder as pc
-    from ..ops import pallas_family as pf
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    fn_k = pf._build_family_decoder(
-        family, int(min_sym), int(max_sym), cfg, T, tail, L, interpret
-    )
-
-    def per_block(st_b, params_b, stream_b):
-        syms, _ = fn_k(st_b[0].reshape(R, pc.LANES), params_b[0], stream_b[0])
-        return syms.reshape(-1)[None, :block_len]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=P(BLOCK_AXIS),
-        check_vma=False,
-    )
-    return fn(init_states, params, streams2d)
-
-
-def shard_tchain_decode_pallas(
-    mesh: Mesh,
-    qwords: jax.Array,  # [D, T, R/2, 128] u32 packed quantiles
-    cdf: np.ndarray,
-    cfg: LaneConfig,
-    interpret: Optional[bool] = None,
-):
-    """TChain-16 bits-back decode, one block per device.  Returns
-    (symbols [D, T*L] i32, remainder buffers [D, cap_rows+R+2, 128] u32,
-    heads [D, L] u32, ends [D, 2] i32)."""
-    from ..ops import tchain as tc
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    T = int(qwords.shape[1])
-    fn_k = tc._build_tchain_decoder(
-        tuple(int(x) for x in np.asarray(cdf)), T, L, interpret
-    )
-
-    def per_block(qw_b):
-        syms, buf, heads, end = fn_k(qw_b[0])
-        return (
-            syms.reshape(-1)[None],
-            buf[None],
-            heads.reshape(-1)[None],
-            end[None],
-        )
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS),),
-        out_specs=(P(BLOCK_AXIS),) * 4,
-        check_vma=False,
-    )
-    return fn(qwords)
-
-
-def shard_decode_exact_family_pallas(
-    mesh: Mesh,
-    init_states: jax.Array,  # [D, L] u32
-    tabs: jax.Array,  # [D, T, CP1, R, 128] u32 exact boundary planes
-    streams2d: jax.Array,  # [D, rows, 128] u32
-    min_sym: int,
-    max_sym: int,
-    cfg: LaneConfig,
-    block_len: int,
-    cmax: int,
-    interpret: Optional[bool] = None,
-):
-    """REFERENCE-EXACT family decode, data-parallel over blocks (each block
-    carries its own host-precomputed exact boundary planes)."""
-    from ..ops import exact_family as ef
-    from ..ops import pallas_coder as pc
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    L = cfg.num_lanes
-    R = L // pc.LANES
-    T = -(-block_len // L)
-    tail = block_len - (T - 1) * L
-    fn_k = ef._build_exact_decoder(
-        int(min_sym), int(max_sym), cfg, T, tail, L, cmax, interpret
-    )
-
-    def per_block(st_b, tabs_b, stream_b):
-        syms, _ = fn_k(st_b[0].reshape(R, pc.LANES), tabs_b[0], stream_b[0])
-        return syms.reshape(-1)[None, :block_len]
-
-    fn = jax.shard_map(
-        per_block,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS)),
-        out_specs=P(BLOCK_AXIS),
-        check_vma=False,
-    )
-    return fn(init_states, tabs, streams2d)

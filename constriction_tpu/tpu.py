@@ -1,18 +1,17 @@
-"""Public facade for the TPU-native fast paths.
+"""Public facade for the device paths.
 
 The `constriction_tpu.stream.*` / `symbol.*` modules mirror the reference's
-host API; this module is the discoverable entry point for everything that
-runs on the accelerator.  All functions accept / return numpy or JAX arrays
-and fall back to the Pallas interpreter off-TPU.
+host API; this module is the discoverable entry point for what runs on the
+accelerator.  All functions accept / return numpy or JAX arrays.  The
+device coder runs the GPU kernels on an NVIDIA GPU and the plain-XLA coder
+on the CPU (ops/route.py); other platforms are an error.
 
     import constriction_tpu.tpu as ctpu
 
     data = ctpu.encode_iid(symbols, cdf)           # ILANS2 container (u32)
-    out  = ctpu.decode_iid(data, cdf)              # ~10 GB/s/chip
+    out  = ctpu.decode_iid(data, cdf)
 
-    states, stream = ctpu.encode_family(sym, mu, sigma, "gaussian", -100, 100)
-    out = ctpu.decode_family(states, stream, mu, sigma, "gaussian",
-                             -100, 100, len(sym))  # ~5 GB/s/chip
+(The module keeps its historical name; it is public API.)
 """
 
 from __future__ import annotations
@@ -21,16 +20,14 @@ import numpy as np
 
 from .ops import framing as _framing
 from .ops import interleaved2 as _il2
-from .ops import pallas_coder as _pc
-from .ops import pallas_family as _pf
 from .ops import chain_jax as _cj
 from .ops.interleaved import LaneConfig
 
 DEFAULT_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32, precision=12)
 SMALL_CFG = LaneConfig(num_lanes=1024, word_bits=16, state_bits=32, precision=12)
-# The reference's DEFAULT preset sizes on device (ops/pallas_coder64.py):
-# 32-bit words, 64-bit lane states, precision 24 (stack.rs:139).  Pass as
-# ``cfg=`` to encode_iid/decode_iid to code P=24 model tables on TPU.
+# The reference's DEFAULT preset sizes on device: 32-bit words, 64-bit lane
+# states, precision 24 (stack.rs:139).  The facade picks it for P > 16
+# models; pass as ``cfg=`` to force it.
 DEFAULT64_CFG = LaneConfig(num_lanes=32768, word_bits=32, state_bits=64, precision=24)
 
 
@@ -52,23 +49,17 @@ def _pick_cfg(n: int, cfg: LaneConfig | None,
         # lane parallelism -- and stays far from the degenerate regime
         # where seed capacity rivals the payload (capacity ~ info measures
         # ~90% overhead: the pooled tail can no longer absorb the seeds).
-        # Matters at low entropy, where n/8 lanes would dwarf the payload;
-        # the on-chip low-entropy suite row (16.7M syms, 0.147 bits/sym)
-        # picks L=16384 under this rule: 3.3% overhead at ~8 GB/s, vs 1.0%
-        # at 2.8 GB/s under the earlier info/16 rule (VERDICT r4 asked for
-        # <=5% AND >=5 GB/s on this row).
+        # Matters at low entropy, where n/8 lanes would dwarf the payload:
+        # at 16.7M symbols and 0.147 bits/symbol this rule picks L=16384
+        # for ~3.3% overhead (a rate figure, from the format alone).
         cap = 128
         while cap * 2 <= min(L, max(int(est_bits) // 32 // 4, 128)):
             cap *= 2
         L = cap
     # The model's fixed-point CDF determines the precision; the facade only
-    # picks matching (W, S) sizes: P <= 16 rides the u32-state kernels,
+    # picks matching (W, S) sizes: P <= 16 rides the u32-state coder,
     # 16 < P <= 24 (including the reference's DEFAULT preset, P = 24,
-    # stack.rs:139) the u32-pair S=64 kernels -- which decode *faster* than
-    # the small preset on-chip, so high precision costs nothing.  Before
-    # round 4 the facade pinned P=12 and rejected P=24 models, giving away
-    # ~1000x the reference default's marginal rate overhead on skewed
-    # models unless callers passed an explicit cfg.
+    # stack.rs:139) the u64-state coder.
     P = 12
     if cdf is not None:
         top = int(np.asarray(cdf)[-1])
@@ -83,22 +74,6 @@ def _pick_cfg(n: int, cfg: LaneConfig | None,
         return LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
                           precision=P)
     return LaneConfig(num_lanes=L, word_bits=32, state_bits=64, precision=P)
-
-
-def _pick_cfg_family(n: int, cfg: LaneConfig | None,
-                     grouped: bool) -> LaneConfig:
-    """Family-coder default: grouped coding only exists for the wide-table
-    S=64 path, so ``grouped=True`` with no explicit cfg picks the
-    DEFAULT-preset sizes (P=24/W=32/S=64) instead of the narrow P=12
-    config -- otherwise the encoder would happily produce a stream the
-    grouped decoder rejects."""
-    if cfg is not None:
-        return cfg
-    base = _pick_cfg(n, None)
-    if grouped:
-        return LaneConfig(num_lanes=base.num_lanes, word_bits=32,
-                          state_bits=64, precision=24)
-    return base
 
 
 def _check_cdf(cdf, cfg: LaneConfig) -> None:
@@ -118,7 +93,7 @@ def _check_cdf(cdf, cfg: LaneConfig) -> None:
 def encode_iid(symbols, cdf, cfg: LaneConfig | None = None,
                alphabet=None, compact: bool = True) -> np.ndarray:
     """Encode i.i.d. categorical symbols into a self-describing ILANS2
-    container (u32 array) using the Pallas encoder.
+    container (u32 array) using the device encoder.
 
     ``alphabet`` (optional, sorted-unique array) enables NON-CONTIGUOUS
     symbol alphabets (reference: non_contiguous.rs): symbols are mapped to
@@ -169,8 +144,8 @@ def encode_iid(symbols, cdf, cfg: LaneConfig | None = None,
 
 
 def decode_iid(container, cdf, alphabet=None) -> np.ndarray:
-    """Decode an ILANS2 container (either framing version) with the Pallas
-    kernel; with ``alphabet``, decoded indices map back to the
+    """Decode an ILANS2 container (either framing version) with the device
+    decoder; with ``alphabet``, decoded indices map back to the
     non-contiguous symbols."""
     container = np.asarray(container)
     _check_cdf(cdf, _framing.peek_cfg(container))
@@ -181,121 +156,6 @@ def decode_iid(container, cdf, alphabet=None) -> np.ndarray:
     if alphabet is not None:
         out = np.asarray(alphabet)[out]
     return out
-
-
-def encode_family(symbols, means, scales, family: str, min_sym: int,
-                  max_sym: int, cfg: LaneConfig | None = None):
-    """On-device encode with per-symbol (mean, scale) models (gaussian /
-    laplace / logistic / cauchy; exact-integer CDF, bit-identical across
-    backends).
-    Returns ``(init_states, stream)``."""
-    symbols = np.asarray(symbols)
-    cfg = _pick_cfg(len(symbols), cfg)
-    return _pf.encode_family_pallas(
-        symbols, means, scales, family, min_sym, max_sym, cfg
-    )
-
-
-def decode_family(init_states, stream, means, scales, family: str,
-                  min_sym: int, max_sym: int, num_symbols: int,
-                  cfg: LaneConfig | None = None):
-    """On-device decode with per-symbol (mean, scale) models."""
-    cfg = _pick_cfg(num_symbols, cfg)
-    return _pf.decode_family_pallas(
-        np.asarray(init_states), np.asarray(stream), means, scales,
-        family, min_sym, max_sym, cfg, num_symbols,
-    )
-
-
-def encode_family_exact(symbols, means, scales, family: str, min_sym: int,
-                        max_sym: int, cfg: LaneConfig | None = None,
-                        grouped: bool = False):
-    """REFERENCE-EXACT per-symbol family encode: the model tables are the
-    host f64 LeakyQuantizer's (bit-identical to constriction's
-    QuantizedGaussian/Laplace/Cauchy/Binomial, quantize.rs:525-568 +
-    pybindings/stream/model.rs:927-966); the rANS coding loop runs
-    on-device.  Slower than :func:`encode_family` (host CDF evals) but
-    bit-compatible with reference-produced models.
-
-    For ``family="binomial"`` pass ``(n_trials, p)`` in the (means, scales)
-    slots with ``min_sym=0`` and ``max_sym == n_trials`` for every symbol
-    (the device path needs a shared support; per-symbol ``n`` falls back to
-    the host coders).
-
-    ``grouped=True`` (S=64 configs) stable-sorts the symbols by per-symbol
-    core size before coding, which lets the decoder run tight-cmax segment
-    kernels -- several times faster on heterogeneous (mean, scale) batches
-    at zero rate cost.  The flag selects the wire ORDER, so pass the same
-    value to :func:`decode_family_exact`."""
-    from .ops import exact_family as _ef
-
-    symbols = np.asarray(symbols)
-    cfg = _pick_cfg_family(len(symbols), cfg, grouped)
-    if grouped:
-        return _ef.encode_family_exact_grouped(
-            symbols, means, scales, family, min_sym, max_sym, cfg
-        )
-    return _ef.encode_family_exact(
-        symbols, means, scales, family, min_sym, max_sym, cfg
-    )
-
-
-def decode_family_exact(init_states, stream, means, scales, family: str,
-                        min_sym: int, max_sym: int, num_symbols: int,
-                        cfg: LaneConfig | None = None,
-                        cmax: int | None = None, grouped: bool = False):
-    """REFERENCE-EXACT per-symbol family decode (twin of
-    :func:`encode_family_exact`): compact exact boundary tables from the
-    host f64 quantizer, quantile inversion + state machine on-device.
-    ``cmax`` bounds the non-linear core per symbol; the default (None)
-    auto-sizes it to this parameter batch's tightest bound, which is also
-    the fastest configuration (table DMA and the kernel scan are O(cmax)).
-    ``grouped`` must match the encode-side flag (core-size-sorted wire
-    order, decoded with tight per-segment cmax kernels)."""
-    from .ops import exact_family as _ef
-
-    cfg = _pick_cfg_family(num_symbols, cfg, grouped)
-    if grouped:
-        return _ef.decode_family_exact_grouped(
-            np.asarray(init_states), np.asarray(stream), means, scales,
-            family, min_sym, max_sym, cfg, num_symbols,
-        )
-    return _ef.decode_family_exact(
-        np.asarray(init_states), np.asarray(stream), means, scales,
-        family, min_sym, max_sym, cfg, num_symbols, cmax=cmax,
-    )
-
-
-def encode_family_exact_container(symbols, means, scales, family: str,
-                                  min_sym: int, max_sym: int,
-                                  cfg: LaneConfig | None = None):
-    """REFERENCE-EXACT per-symbol family encode into a compact v2
-    container (whole-message framing: variable-width packed states +
-    recovered-seed tail, ops/framing_family.py).  The symbol stream uses
-    the same host-f64-LeakyQuantizer tables as
-    :func:`encode_family_exact` (quantize.rs:525-568); total container
-    overhead on the Q.npz-style benchmark drops 12.4% -> ~1.3% vs the raw
-    (states, stream) form.  Decode with
-    :func:`decode_family_exact_container`."""
-    from .ops import framing_family as _ffam
-
-    symbols = np.asarray(symbols)
-    cfg = _pick_cfg_family(len(symbols), cfg, True)
-    return _ffam.encode_family_v2(
-        symbols, means, scales, family, min_sym, max_sym, cfg
-    )
-
-
-def decode_family_exact_container(container, means, scales, family: str,
-                                  min_sym: int, max_sym: int):
-    """Decode an :func:`encode_family_exact_container` container; region A
-    runs the grouped tight-cmax device kernels, the recovered-seed tail
-    decodes on the host oracle."""
-    from .ops import framing_family as _ffam
-
-    return _ffam.decode_family_v2(
-        np.asarray(container), means, scales, family, min_sym, max_sym
-    )
 
 
 def build_checkpoints(container, cdf, interval: int):
@@ -339,89 +199,3 @@ def decode_chain_iid(data, num_symbols: int, cdf):
 def decode_chain_rows(data, rows):
     """Chain decode with a different categorical model per symbol."""
     return _cj.chain_decode_rows(np.asarray(data), rows)
-
-
-def encode_iid_range(symbols, cdf, cfg: LaneConfig | None = None):
-    """Range-coder twin of :func:`encode_iid`: returns ``(points, stream)``
-    (ILANS2-R), encoded on-device; decode with :func:`decode_iid_range`.
-    Default-preset configs (S=64) route to the ILANS2-R64 Pallas encoder."""
-    symbols = np.asarray(symbols)
-    cfg = _pick_cfg(len(symbols), cfg, cdf)
-    _check_cdf(cdf, cfg)
-    return _il2.encode_iid_categorical_range(symbols, cdf, cfg, device=True)
-
-
-def decode_iid_range(points, stream, cdf, num_symbols: int,
-                     cfg: LaneConfig | None = None):
-    """Decode an ILANS2-R stream with the Pallas range decoder (the
-    default-preset S=64 sizes route to the ILANS2-R64 kernel)."""
-    cfg = _pick_cfg(num_symbols, cfg, cdf)
-    _check_cdf(cdf, cfg)
-    if not _il2._pallas_eligible(cfg):
-        # mirror encode_iid_range's host fallback: data encoded through a
-        # non-Pallas config must stay decodable through the facade
-        return _il2.decode_shared_range_cdf(
-            np.asarray(points), np.asarray(stream), num_symbols, cdf, cfg
-        )
-    if cfg.state_bits == 64:
-        from .ops import pallas_coder64 as _pc64
-
-        return _pc64.decode_shared_range64_pallas(
-            np.asarray(points), np.asarray(stream), cdf, cfg, num_symbols
-        )
-    return _pc.decode_shared_range_pallas(
-        np.asarray(points), np.asarray(stream), cdf, cfg, num_symbols
-    )
-
-
-def bits_back_decode(quantiles, cdf):
-    """TChain-16 bits-back decode: returns (symbols, remainders, heads);
-    reverse with :func:`bits_back_encode` to recover the quantiles exactly.
-    ``len(quantiles)`` must be a multiple of the lane count (32768)."""
-    from .ops import tchain as _tc
-
-    return _tc.tchain_decode_pallas(quantiles, cdf)
-
-
-def bits_back_encode(symbols, remainders, heads, cdf):
-    """Reverse pass of :func:`bits_back_decode` (exact reconstruction)."""
-    from .ops import tchain as _tc
-
-    return _tc.tchain_encode_pallas(symbols, remainders, heads, cdf)
-
-
-def bits_back_decode24(quantiles, cdf):
-    """TChain-24 bits-back decode at the reference's DEFAULT precision
-    (S=64/W=32/P=24): returns (symbols, remainders, heads u64); reverse
-    with :func:`bits_back_encode24`.  ``len(quantiles)`` must be a multiple
-    of the lane count (32768); quantiles are 24-bit values in u32."""
-    from .ops import tchain as _tc
-
-    return _tc.tchain24_decode_pallas(quantiles, cdf)
-
-
-def bits_back_encode24(symbols, remainders, heads, cdf):
-    """Reverse pass of :func:`bits_back_decode24` (exact reconstruction)."""
-    from .ops import tchain as _tc
-
-    return _tc.tchain24_encode_pallas(symbols, remainders, heads, cdf)
-
-
-def bits_back_decode_family(quantiles, means, scales, family, min_sym, max_sym):
-    """Neural bits-back: per-symbol (mean, scale) models, 12-bit quantiles
-    (``len(quantiles)`` must be a multiple of 32768)."""
-    from .ops import tchain as _tc
-
-    return _tc.tchain12_family_decode_pallas(
-        quantiles, means, scales, family, min_sym, max_sym
-    )
-
-
-def bits_back_encode_family(symbols, remainders, heads, means, scales,
-                            family, min_sym, max_sym):
-    """Reverse pass of :func:`bits_back_decode_family`."""
-    from .ops import tchain as _tc
-
-    return _tc.tchain12_family_encode_pallas(
-        symbols, remainders, heads, means, scales, family, min_sym, max_sym
-    )

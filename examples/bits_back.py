@@ -1,25 +1,18 @@
-"""Bits-back coding with latent variables, end to end on the accelerator.
+"""Bits-back coding with the chain coder (host API, reference parity).
 
-The classic bits-back setup (the reference motivates its ChainCoder with it;
-chain.rs:1-84): a sender compresses a message whose entropy model depends on
-a latent variable z.  Instead of paying bits to transmit z, the sender
-*decodes* z from the already-compressed tail of its own bitstream (getting
-those bits back), encodes the message under model(z), and the receiver
-reverses the steps.  Net cost: H(message | z) - H(z under posterior) + H(z)
-= the joint optimum.
+A bits-back sender "decodes" a latent from side information it already
+holds (borrowing its bits), then encodes data given that latent.  The
+chain coder makes the borrowing exact and symbol-local: decoding with a
+posterior consumes exactly ``precision`` bits per symbol, and the
+remainders let the receiver rebuild the borrowed bits bit for bit
+(reference: constriction.stream.chain.ChainCoder, chain.rs:1-84).
 
-This demo uses the TChain-16 engine (ops/tchain.py) for the "free bits"
-stage and the ILANS2 Pallas coder for the payload:
+This walkthrough decodes latents from random side information with a
+posterior model, re-encodes them on a fresh coder built from the
+remainders, and checks that the original side information comes back.
 
-  sender:   z      = tchain_decode(tail_of_payload_so_far, posterior)
-            stream = ilans2_encode(message, model[z])
-  receiver: message = ilans2_decode(stream, model[z]) after recovering z
-            and re-encoding the borrowed tail exactly (tchain_encode).
-
-Run: python examples/bits_back.py [--tpu]
+Run: python examples/bits_back.py
 """
-
-from __future__ import annotations
 
 import os
 import sys
@@ -30,79 +23,28 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 
 def main() -> None:
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-    print("backend:", jax.default_backend())
-
-    from constriction_tpu.models.categorical import (
-        ContiguousCategoricalEntropyModel,
-    )
-    from constriction_tpu.ops import interleaved2 as il2
-    from constriction_tpu.ops import tchain
-    from constriction_tpu.ops.interleaved import LaneConfig
+    import constriction_tpu as constriction
 
     rng = np.random.RandomState(0)
-    L = 256
-    cfg16 = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=16)
-    cfg12 = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
+    side_info = rng.randint(0, 2**32, size=256, dtype=np.uint64).astype(np.uint32)
 
-    # --- a mixture source: each block is drawn from one of NZ regimes -------
-    NZ = 4
-    alphabet = 64
-    mix_probs = [rng.dirichlet(np.full(alphabet, c)) for c in (0.3, 1.0, 3.0, 10.0)]
-    models12 = [
-        ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(p, 12)
-        for p in mix_probs
-    ]
-    # posterior over z given the block (here: uniform "free choice" — the
-    # sender may pick ANY z and the bits-back trick refunds the choice)
-    posterior = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        np.full(NZ, 1.0 / NZ), 16
-    )
+    # posterior over the latent: 8 categories, one model for every symbol
+    probs = rng.dirichlet(np.full(8, 1.5))
+    posterior = constriction.stream.model.Categorical(probs, perfect=False)
 
-    n = L * 64
-    z_true = rng.randint(0, NZ)
-    message = rng.choice(alphabet, size=n, p=mix_probs[z_true]).astype(np.int64)
+    # sender: borrow bits from the side information by decoding latents
+    coder = constriction.stream.chain.ChainCoder(side_info, seal=True)
+    latents = coder.decode(posterior, 100)
+    remainders = np.concatenate(coder.get_remainders())
+    print(f"decoded {len(latents)} latents from {len(side_info)} words of "
+          f"side information ({len(remainders)} remainder words left)")
 
-    # --- sender --------------------------------------------------------------
-    # 1. borrow L u16 quantiles of random side-information (in a real system:
-    #    the tail of previously compressed data) and decode z from them
-    side_info = rng.randint(0, 1 << 16, size=L).astype(np.uint16)
-    z_lanes, rem, heads = tchain.tchain_decode_host(side_info, posterior.cdf, cfg16)
-    z = int(z_lanes[0])  # all lanes decode i.i.d.; use lane 0's draw
-    print(f"latent decoded from side-information: z={z} (true regime {z_true})")
-
-    # 2. encode the message under model[z] with the ILANS2 Pallas coder
-    container = il2.encode_iid_categorical2(message, models12[z].cdf, cfg12, device=True)
-
-    payload_bits = len(container) * 32
-    info_bits = -np.sum(
-        np.log2(
-            (models12[z].cdf.astype(np.float64)[message + 1]
-             - models12[z].cdf.astype(np.float64)[message]) / 4096.0
-        )
-    )
-    print(
-        f"payload: {payload_bits} bits for {info_bits:.0f} bits of information "
-        f"({payload_bits / n:.3f} bits/sym vs {info_bits / n:.3f} optimal under model[z])"
-    )
-
-    # --- receiver ------------------------------------------------------------
-    # recovers z the same way (same side information), decodes the message,
-    # then returns the borrowed bits exactly
-    z2_lanes, rem2, heads2 = tchain.tchain_decode_host(side_info, posterior.cdf, cfg16)
-    z2 = int(z2_lanes[0])
-    assert z2 == z
-    out = il2.decode_iid_categorical2(container, models12[z2].cdf, device=True)
-    assert np.array_equal(out, message), "message round trip failed"
-
-    recovered_side, h_final = tchain.tchain_encode_host(
-        z2_lanes, rem2, heads2, posterior.cdf, cfg16
-    )
-    assert np.array_equal(recovered_side, side_info) and np.all(h_final == 1)
-    print("bits-back round trip exact: message recovered, side-information returned")
+    # receiver: re-encode the latents onto the remainders -> side info back
+    back = constriction.stream.chain.ChainCoder(remainders, is_remainders=True)
+    back.encode_reverse(latents, posterior)
+    recovered = np.concatenate(back.get_data(unseal=True))
+    assert np.array_equal(recovered, side_info)
+    print("bits-back round trip: side information recovered bit for bit")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Whole-message rate parity: the compact (v2) container framing.
 
 A reference (constriction) user's file is `stream + <= 2 flush words`.  A
-parallel TPU format keeps L independent lane states, which naively costs
+parallel device format keeps L independent lane states, which naively costs
 L*S header bits per message.  The v2 framing (ops/framing.py) removes
 almost all of it:
 
@@ -15,7 +15,7 @@ This example encodes one message three ways and prints the byte counts:
 the raw v1 container, the compact v2 container (the facade default), and
 the bit-exact host AnsCoder twin of the reference's own framing.
 
-Runs anywhere: ``JAX_PLATFORMS=cpu python examples/compact_framing.py``.
+Runs anywhere: ``python examples/compact_framing.py``.
 """
 
 import os
@@ -24,11 +24,6 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import constriction_tpu.tpu as ctpu
 from constriction_tpu.models.categorical import (
@@ -65,8 +60,8 @@ def main() -> None:
     print(f"message: {n} symbols, information content {info_bytes:,.0f} B")
     for name, nbytes in [
         ("reference framing (bit-exact host twin)", ref_bytes),
-        ("TPU container v1 (raw lane states)", len(v1) * 4),
-        ("TPU container v2 (compact, facade default)", len(v2) * 4),
+        ("device container v1 (raw lane states)", len(v1) * 4),
+        ("device container v2 (compact, facade default)", len(v2) * 4),
     ]:
         print(
             f"  {name:44s} {nbytes:>9,} B "

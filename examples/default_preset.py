@@ -1,19 +1,13 @@
-"""The reference's DEFAULT preset (W=32 / S=64 / P=24) fully on device.
+"""The reference's DEFAULT preset (W=32 / S=64 / P=24) on the device.
 
 constriction's Python API pins the "default" preset: 32-bit stream words,
 64-bit coder states, 24-bit fixed-point probabilities
-(/root/reference/src/stream/stack.rs:139).  This example codes that exact
-preset on TPU (ops/pallas_coder64.py):
+(/root/reference/src/stream/stack.rs:139).  The facade picks that preset
+for any P=24 model: an i.i.d. categorical message against a P=24 CDF is
+coded into an ILANS2-64 container on the device (u64 lane states), and
+decoded back, bit-exact with the host oracle.
 
-1. i.i.d. categorical message against a P=24 CDF -> ILANS2-64 container
-   (encode on device, decode on device, bit-exact with the host oracle);
-2. the same message through the default-preset RANGE coder (host C++
-   encode, ILANS2-R64 device decode, InvalidData detection);
-3. a per-symbol Gaussian message against the REFERENCE-EXACT P=24
-   LeakyQuantizer tables (host f64 model math identical to
-   quantize.rs:525-568 at PRECISION=24, coding loop on device).
-
-Run: python examples/default_preset.py [--tpu]
+Run: python examples/default_preset.py
 """
 
 from __future__ import annotations
@@ -27,16 +21,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 
 def main() -> None:
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     import constriction_tpu.tpu as ctpu
     from constriction_tpu.models.categorical import (
         ContiguousCategoricalEntropyModel,
     )
-    from constriction_tpu.ops.interleaved import LaneConfig
+    from constriction_tpu.ops import framing
 
     rng = np.random.RandomState(0)
     K, n = 100, 20000
@@ -45,38 +34,20 @@ def main() -> None:
         probs, 24
     ).cdf
     symbols = rng.choice(K, size=n, p=probs)
-    cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64, precision=24)
 
-    # 1. rANS at the default preset, both directions on device
-    container = ctpu.encode_iid(symbols, cdf24, cfg=cfg)
-    decoded = ctpu.decode_iid(container, cdf24)
-    assert np.array_equal(decoded, symbols)
+    container = ctpu.encode_iid(symbols, cdf24)
+    cfg = framing.peek_cfg(container)
+    assert (cfg.word_bits, cfg.state_bits, cfg.precision) == (32, 64, 24)
+    assert np.array_equal(ctpu.decode_iid(container, cdf24), symbols)
+    host = framing.encode_iid_v2(symbols, cdf24, cfg, device=False)
+    assert np.array_equal(container, host)
     info = -np.sum(np.log2(
         (cdf24.astype(np.float64)[symbols + 1] - cdf24[symbols]) / 2.0**24
     ))
-    print(f"rANS default preset: {n} symbols, "
+    print(f"rANS default preset: {n} symbols over {cfg.num_lanes} lanes, "
           f"{len(container) * 32} container bits "
-          f"({len(container) * 32 / info - 1:+.3%} vs the information bound, "
-          "incl. the per-lane header)")
-
-    # 2. range coding at the default preset
-    points, stream = ctpu.encode_iid_range(symbols, cdf24, cfg=cfg)
-    rdecoded = np.asarray(ctpu.decode_iid_range(points, stream, cdf24, n, cfg=cfg))
-    assert np.array_equal(rdecoded, symbols)
-    print("range default preset: round trip OK "
-          f"({len(stream)} stream words + {len(points)} u64 points)")
-
-    # 3. reference-exact P=24 per-symbol Gaussians on device
-    m = rng.uniform(-60, 60, n)
-    s = np.exp(rng.uniform(np.log(0.3), np.log(5.0), n))
-    fsym = np.clip(np.round(m + rng.randn(n) * s), -100, 100).astype(np.int64)
-    st, w = ctpu.encode_family_exact(fsym, m, s, "gaussian", -100, 100, cfg=cfg)
-    out = np.asarray(ctpu.decode_family_exact(
-        st, w, m, s, "gaussian", -100, 100, n, cfg=cfg, cmax=202
-    ))
-    assert np.array_equal(out, fsym)
-    print("reference-exact P=24 Gaussian family: round trip OK "
-          "(tables bit-identical to constriction's default-preset quantizer)")
+          f"({len(container) * 32 / info - 1:+.3%} vs the information bound); "
+          "device bytes == host bytes")
 
 
 if __name__ == "__main__":

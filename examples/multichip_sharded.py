@@ -1,18 +1,21 @@
 """Data-parallel entropy coding over a device mesh.
 
-The TPU scaling story for an entropy coder is embarrassingly parallel:
-split the message into D independent blocks, give every device its own
-lane-interleaved coder (one Pallas kernel per device under `shard_map`),
-and all-gather the variable-length compressed blocks with a length table
-at the end (the only collective, riding ICI on real slices).
+The scaling story for an entropy coder is embarrassingly parallel: split
+the message into independent blocks, give every device its share of the
+blocks (one device coder per device under `shard_map`), and all-gather the
+variable-length compressed blocks with a length table at the end (the only
+collective; NVLink between the cards of one host).
 
-This example runs on a virtual 8-device CPU mesh by default so it works
-anywhere (``python examples/multichip_sharded.py``); pass ``--tpu`` to
-shard over the attached chips instead.  On a real multi-chip slice the
-same code shards over the physical mesh.
-Reference anchor: constriction has no distributed path; the closest seam
-is its pluggable word-I/O backend (backends.rs) -- here that seam is the
-sharded device array + gather (SURVEY.md section 2, parallelism table).
+``parallel.encode`` / ``parallel.decode`` do all of that in one call, and
+the container does not depend on the mesh: bytes encoded on D devices
+equal the host loop's and decode on any device count that divides the
+block count.
+
+Run anywhere: ``python examples/multichip_sharded.py`` uses every device
+JAX sees (on a CPU, ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
+gives four virtual ones).  Reference anchor: constriction has no
+distributed path; the closest seam is its pluggable word-I/O backend
+(backends.rs).
 """
 
 import os
@@ -22,96 +25,37 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-if "--tpu" not in sys.argv:
-    os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
-import jax
-import jax.numpy as jnp
+def main() -> None:
+    import jax
 
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
+    from constriction_tpu import parallel
+    from constriction_tpu.models.categorical import (
+        ContiguousCategoricalEntropyModel,
+    )
+    from constriction_tpu.ops.interleaved import LaneConfig
 
-from constriction_tpu.models.categorical import (
-    ContiguousCategoricalEntropyModel,
-)
-from constriction_tpu.ops.interleaved import LaneConfig
-from constriction_tpu.parallel import (
-    gather_blocks,
-    make_mesh,
-    shard_decode2_pallas,
-    shard_encode2_pallas,
-)
-
-
-def main():
     D = len(jax.devices())
-    mesh = make_mesh(D)
     print(f"mesh: {D} x {jax.devices()[0].platform}")
-
     rng = np.random.RandomState(0)
-    K = 300  # > 255: the kernels use the segmented two-level compare-sum
-    probs = rng.dirichlet(np.full(K, 1.5))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 12
-    )
-    cdf = model.cdf
+    K, n = 50, 200_000
+    probs = rng.dirichlet(np.full(K, 2.0))
+    cdf = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
+        probs, 12).cdf
+    symbols = rng.choice(K, size=n, p=probs)
+    cfg = LaneConfig(num_lanes=1024, word_bits=16, state_bits=32, precision=12)
+    mesh = parallel.make_mesh(D)
 
-    cfg = LaneConfig(num_lanes=128, word_bits=16, state_bits=32, precision=12)
-    block_len = 4000
-    n = D * block_len
-    message = rng.choice(K, size=n, p=probs).astype(np.int64)
-
-    # --- encode: one Pallas coder per device ------------------------------
-    syms2d = jnp.asarray(message, jnp.int32).reshape(D, block_len)
-    states, bufs, ends = shard_encode2_pallas(mesh, syms2d, cdf, cfg)
-
-    # per-block streams (right-aligned in each buffer)
-    R = cfg.num_lanes // 128
-    T = -(-block_len // cfg.num_lanes)
-    cap = (T * R + 1) * 128
-    ends_np = np.asarray(ends)
-    streams = [
-        np.asarray(bufs[d]).reshape(-1)[ends_np[d, 0] : cap] for d in range(D)
-    ]
-    total_bits = sum(len(s) for s in streams) * 16 + D * cfg.num_lanes * 32
-    info = -np.sum(
-        np.log2(
-            (cdf.astype(np.float64)[message + 1] - cdf[message]) / (1 << 12)
-        )
-    )
-    print(
-        f"encoded {n} symbols into {D} blocks: "
-        f"{total_bits / n:.3f} bits/sym (bound {info / n:.3f})"
-    )
-
-    # --- decode: independent per device, then gather ----------------------
-    rows = -(-(cap // 128 + R + 1) // 8) * 8  # pallas stream padding
-    streams2d = np.zeros((D, rows, 128), np.uint32)
-    for d in range(D):
-        s = streams[d]
-        streams2d[d].reshape(-1)[: len(s)] = s
-    out = shard_decode2_pallas(
-        mesh, states, jnp.asarray(streams2d), cdf, cfg, block_len
-    )
-    decoded = np.asarray(out).reshape(-1)
-    assert np.array_equal(decoded, message)
-    print("sharded decode: bit-exact round trip across the mesh")
-
-    # --- the one collective: in-order gather of variable-length blocks ----
-    max_words = max(len(s) for s in streams)
-    words = np.zeros((D, max_words), np.uint32)
-    counts = np.zeros((D, 1), np.int32)
-    for d, s in enumerate(streams):
-        words[d, : len(s)] = s
-        counts[d, 0] = len(s)
-    gw, gc = gather_blocks(mesh, jnp.asarray(words), jnp.asarray(counts))
-    container = np.concatenate(
-        [np.asarray(gw)[d, : int(np.asarray(gc)[d, 0])] for d in range(D)]
-    )
-    print(
-        f"gathered container: {len(container)} words from {D} devices "
-        "(every device ends with the full stream)"
-    )
+    for compact in (False, True):
+        cont = parallel.encode(symbols, cdf, cfg=cfg, num_blocks=2 * D,
+                               mesh=mesh, compact=compact)
+        host = parallel.encode(symbols, cdf, cfg=cfg, num_blocks=2 * D,
+                               device=False, compact=compact)
+        assert np.array_equal(cont, host), "device bytes differ from host"
+        out = parallel.decode(cont, cdf, mesh=mesh)
+        assert np.array_equal(out, symbols)
+        print(f"{'compact' if compact else 'raw'} container: {2 * D} blocks, "
+              f"{len(cont) * 4} bytes; device == host bytes; round trip OK")
 
 
 if __name__ == "__main__":

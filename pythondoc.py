@@ -4,7 +4,7 @@ The reference builds its Python docs site with pdoc3 (`pythondoc.py` in
 /root/reference); this is the equivalent for an environment without pdoc:
 a stdlib inspect walk over the public package surface that emits one
 markdown file per module.  CI regenerates and diffs the output, so the
-committed docs cannot drift from the code (VERDICT r2 missing #4).
+committed docs cannot drift from the code.
 
 Run: python pythondoc.py  [--check]
 """
@@ -37,6 +37,8 @@ MODULES = [
     "constriction_tpu.models.uniform",
     "constriction_tpu.backends",
     "constriction_tpu.ops.interleaved",
+    "constriction_tpu.ops.device_coder",
+    "constriction_tpu.ops.route",
 ]
 
 

@@ -1,6 +1,6 @@
 """Sharded container: one-call mesh encode/decode, mesh-shape independence.
 
-VERDICT item: `parallel.encode(symbols, model, mesh)` / `parallel.decode`
+`parallel.encode(symbols, model, mesh)` / `parallel.decode`
 must round-trip on any mesh shape including ragged tails, and the container
 bytes must not depend on the mesh.  Runs on the 8-device CPU mesh
 (conftest sets xla_force_host_platform_device_count).
@@ -126,7 +126,7 @@ def test_sharded_container_default_preset_s64():
         symbols, cdf, cfg=cfg, num_blocks=D, device=False
     )
     assert np.array_equal(cont_dev, cont_host)
-    out_dev = parallel.decode(cont_dev, cdf, mesh=mesh, device=True)
+    out_dev = parallel.decode(cont_dev, cdf, mesh=mesh)
     out_host = parallel.decode(cont_dev, cdf, device=False)
     assert np.array_equal(out_dev, symbols)
     assert np.array_equal(out_host, symbols)
@@ -145,8 +145,9 @@ def _needs_native():
 
 def test_container_range_roundtrip():
     """coder="range": each block is an ILANS2-R unit (stored states are the
-    decoder point headers, queue.rs:847-868).  Device and host encodes give
-    identical bytes; any D | B mesh decodes them."""
+    decoder point headers, queue.rs:847-868).  Range containers are coded
+    on the host: a mesh does not move them to the device, and an explicit
+    device request is rejected."""
     import jax
 
     _needs_native()
@@ -155,39 +156,44 @@ def test_container_range_roundtrip():
         symbols, cdf, cfg=CFG, num_blocks=8, device=False, coder="range"
     )
     mesh8 = parallel.make_mesh(min(8, len(jax.devices())))
-    cont_dev = parallel.encode(
-        symbols, cdf, cfg=CFG, num_blocks=8, mesh=mesh8, device=True,
-        coder="range",
+    cont_mesh = parallel.encode(
+        symbols, cdf, cfg=CFG, num_blocks=8, mesh=mesh8, coder="range",
     )
-    np.testing.assert_array_equal(cont_host, cont_dev)
+    np.testing.assert_array_equal(cont_host, cont_mesh)
     # header records queue semantics
-    *_, coder = parallel.unpack_sharded(cont_dev)
+    *_, coder = parallel.unpack_sharded(cont_mesh)
     assert coder == parallel.CODER_RANGE
+    with pytest.raises(ValueError, match="range containers"):
+        parallel.encode(symbols, cdf, cfg=CFG, num_blocks=8, device=True,
+                        coder="range")
+    with pytest.raises(ValueError, match="range containers"):
+        parallel.decode(cont_host, cdf, device=True)
 
     for d in (1, 2, 8):
         if d > len(jax.devices()):
             continue
         mesh = parallel.make_mesh(d)
-        out = parallel.decode(cont_host, cdf, mesh=mesh, device=True)
+        out = parallel.decode(cont_host, cdf, mesh=mesh)
         np.testing.assert_array_equal(out, symbols)
-    out = parallel.decode(cont_dev, cdf, device=False)
+    out = parallel.decode(cont_mesh, cdf, device=False)
     np.testing.assert_array_equal(out, symbols)
 
 
 def test_container_range_ragged_tail_device_encode():
-    """Range container with a mostly-padding tail block, device encode
-    without a host-encoder reference (no native requirement)."""
+    """Range container with a mostly-padding tail block (host coders; the
+    device coder covers rANS)."""
+    _needs_native()
     symbols, cdf = _workload(8 * 513 - 311, seed=23)
     cont = parallel.encode(
-        symbols, cdf, cfg=CFG, num_blocks=8, device=True, coder="range"
+        symbols, cdf, cfg=CFG, num_blocks=8, device=False, coder="range"
     )
-    out = parallel.decode(cont, cdf, device=True)
+    out = parallel.decode(cont, cdf)
     np.testing.assert_array_equal(out, symbols)
 
 
 def test_container_range_default_preset_s64():
     """coder="range" at the DEFAULT preset (W=32/S=64/P=24): u64 point
-    headers as lo/hi planes; device == host bytes; both decodes agree."""
+    headers as lo/hi planes; a mesh leaves range coding on the host."""
     import jax
 
     _needs_native()
@@ -204,14 +210,13 @@ def test_container_range_default_preset_s64():
     mesh = parallel.make_mesh(D)
 
     cont_dev = parallel.encode(
-        symbols, cdf, cfg=cfg, num_blocks=D, mesh=mesh, device=True,
-        coder="range",
+        symbols, cdf, cfg=cfg, num_blocks=D, mesh=mesh, coder="range",
     )
     cont_host = parallel.encode(
         symbols, cdf, cfg=cfg, num_blocks=D, device=False, coder="range"
     )
     assert np.array_equal(cont_dev, cont_host)
-    out_dev = parallel.decode(cont_dev, cdf, mesh=mesh, device=True)
+    out_dev = parallel.decode(cont_dev, cdf, mesh=mesh)
     out_host = parallel.decode(cont_dev, cdf, device=False)
     assert np.array_equal(out_dev, symbols)
     assert np.array_equal(out_host, symbols)
@@ -221,17 +226,18 @@ def test_container_range_default_preset_s64():
 
 def test_container_range_invalid_data():
     """Corrupt point headers trip the queue decoder's InvalidData check
-    (queue.rs:991-993) through the container device path."""
+    (queue.rs:991-993) through the container's host decoder."""
+    _needs_native()
     symbols, cdf = _workload(2000, seed=25)
     cont = parallel.encode(
-        symbols, cdf, cfg=CFG, num_blocks=4, device=True, coder="range"
+        symbols, cdf, cfg=CFG, num_blocks=4, device=False, coder="range"
     )
     states, streams, n, bl, cfg, coder = parallel.unpack_sharded(cont)
     bad = parallel.pack_sharded(
         np.full_like(states, 0xFFFFFFFF), streams, n, bl, cfg, coder
     )
     with pytest.raises(ValueError, match="inconsistent with the entropy"):
-        parallel.decode(bad, cdf, device=True)
+        parallel.decode(bad, cdf)
 
 
 def test_encode_rejects_unknown_coder():
@@ -377,13 +383,14 @@ def test_block_checkpoints_s64_and_range():
     block_len_r = n // 2 + n % 2
     for block in (0, 1):
         for ck in (0, offs_r.shape[1] - 1):
-            for device in (False, True):
-                start, suffix = parallel.decode_block_from_checkpoint(
-                    cont_r, model.cdf, interval, block, ck, offs_r, sts_r,
-                    device=device,
-                )
-                end = min((block + 1) * block_len_r, n)
-                np.testing.assert_array_equal(suffix, symbols[start:end])
+            start, suffix = parallel.decode_block_from_checkpoint(
+                cont_r, model.cdf, interval, block, ck, offs_r, sts_r,
+            )
+            end = min((block + 1) * block_len_r, n)
+            np.testing.assert_array_equal(suffix, symbols[start:end])
+    with pytest.raises(ValueError, match="host"):
+        parallel.decode_block_from_checkpoint(
+            cont_r, model.cdf, interval, 0, 0, offs_r, sts_r, device=True)
 
 
 def test_parallel_encode_infers_precision_from_cdf():
@@ -407,7 +414,7 @@ def test_parallel_encode_infers_precision_from_cdf():
 
 def test_sharded_compact_v2_roundtrip_and_rate():
     """Sharded v2 (compact=True): variable-width block states + pooled-tail
-    seed recovery.  Host and device (interpret) bytes identical, round
+    seed recovery.  Host and device (XLA route) bytes identical, round
     trips on both, total size well under v1's raw state header."""
     rng = np.random.RandomState(21)
     probs = rng.dirichlet(np.full(60, 1.2))

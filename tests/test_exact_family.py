@@ -1,13 +1,13 @@
-"""Reference-exact device families (ops/exact_family.py).
+"""Reference-exact families (ops/exact_family.py): host tables and oracle.
 
-The VERDICT golden contract: device tables must equal the host f64
-LeakyQuantizer's bit-for-bit over random (mean, scale), and an on-device
-round trip must be flagged reference-exact.  The host quantizer itself is
+The golden contract: the compact boundary tables must equal the host f64
+LeakyQuantizer's bit-for-bit over random (mean, scale), and a round trip
+through them must be exact.  The host quantizer itself is
 golden-verified against the reference (tests/test_golden_reference.py), so
 equality here chains to quantize.rs:525-568.
 
 The (mean, scale) sample count scales with CTPU_EXACT_SOAK_N (default
-2000 per family; the full 10^6 VERDICT soak: CTPU_EXACT_SOAK_N=1000000
+2000 per family; the full 10^6 soak: CTPU_EXACT_SOAK_N=1000000
 python -m pytest tests/test_exact_family.py -k golden -v).
 """
 
@@ -40,7 +40,7 @@ def _params(rng, n):
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
 def test_golden_tables_vs_host_quantizer(family):
-    """Full-table equality: every (sym, cum, prob) the compact device
+    """Full-table equality: every (sym, cum, prob) the compact
     tables produce equals the host f64 LeakyQuantizer's quantile_function,
     over random (mean, scale) and a quantile sample per model."""
     rng = np.random.RandomState(hash(family) % (1 << 31))
@@ -89,39 +89,6 @@ def test_golden_tables_vs_host_quantizer(family):
     np.testing.assert_array_equal(prob2, probs.astype(np.uint64))
 
 
-@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
-def test_exact_roundtrip_device(family):
-    """On-device (interpreter on CPU) encode + decode, bit-exact with the
-    host twins -- the 'reference-exact' round trip."""
-    rng = np.random.RandomState(5)
-    cfg = LaneConfig(num_lanes=256, word_bits=16, state_bits=32, precision=P)
-    n = 4000
-    means = rng.uniform(-60, 60, n)
-    scales = np.exp(rng.uniform(np.log(0.2), np.log(6.0), n))
-    syms = np.clip(np.round(means + rng.randn(n) * scales), MIN, MAX).astype(
-        np.int64
-    )
-    cums, probs = ef.exact_ecp(syms, means, scales, family, MIN, MAX, P)
-    ref_st, ref_w = il2.encode_shared(
-        cums.astype(np.uint64), probs.astype(np.uint64), cfg
-    )
-    st, w = ef.encode_family_exact(syms, means, scales, family, MIN, MAX, cfg)
-    np.testing.assert_array_equal(np.asarray(st), ref_st)
-    np.testing.assert_array_equal(np.asarray(w), ref_w)
-    out_h = ef.decode_family_exact_host(
-        ref_st, ref_w, means, scales, family, MIN, MAX, cfg, n,
-        cmax=CMAX[family],
-    )
-    np.testing.assert_array_equal(out_h, syms)
-    out_d = np.asarray(
-        ef.decode_family_exact(
-            ref_st, ref_w, means, scales, family, MIN, MAX, cfg, n,
-            cmax=CMAX[family],
-        )
-    )
-    np.testing.assert_array_equal(out_d, syms)
-
-
 def test_edge_cases():
     """Means far outside the support, near-delta scales, and the cmax
     guard."""
@@ -147,26 +114,6 @@ def test_edge_cases():
         ef.exact_boundary_tables(
             np.zeros(4), np.full(4, 500.0), "gaussian", MIN, MAX, P, 64
         )
-
-
-def test_facade_entry_points():
-    import constriction_tpu.tpu as ctpu
-
-    rng = np.random.RandomState(2)
-    n = 3000
-    means = rng.uniform(-40, 40, n)
-    scales = np.exp(rng.uniform(np.log(0.3), np.log(5.0), n))
-    syms = np.clip(np.round(means + rng.randn(n) * scales), MIN, MAX).astype(
-        np.int64
-    )
-    cfg = LaneConfig(num_lanes=128, word_bits=16, state_bits=32, precision=P)
-    st, w = ctpu.encode_family_exact(syms, means, scales, "gaussian",
-                                     MIN, MAX, cfg)
-    out = np.asarray(
-        ctpu.decode_family_exact(st, w, means, scales, "gaussian",
-                                 MIN, MAX, n, cfg)
-    )
-    np.testing.assert_array_equal(out, syms)
 
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy", "binomial"])
@@ -247,35 +194,6 @@ def test_p16_top_quantile_regression():
     np.testing.assert_array_equal(p.astype(np.int64), p64[idx])
 
 
-def test_p16_flat_roundtrip_device():
-    """Full P = 16 encode -> kernel decode round trip on a flat gaussian,
-    with a run of max-symbol encodes steering quantiles into the top
-    interval (the region the pre-fix sentinel logic corrupted)."""
-    P16, mn, mx = 16, -50, 50
-    cfg16 = LaneConfig(num_lanes=128, word_bits=16, state_bits=32,
-                       precision=P16)
-    rng = np.random.RandomState(9)
-    n = 1500
-    means = np.zeros(n)
-    scales = np.full(n, 500.0)
-    syms = rng.randint(mn, mx + 1, size=n).astype(np.int64)
-    syms[300:600] = mx  # force top-interval quantiles during decode
-    cums, probs = ef.exact_ecp(syms, means, scales, "gaussian", mn, mx, P16)
-    st, w = il2.encode_shared(
-        cums.astype(np.uint64), probs.astype(np.uint64), cfg16
-    )
-    out_h = ef.decode_family_exact_host(
-        st, w, means, scales, "gaussian", mn, mx, cfg16, n, cmax=128
-    )
-    np.testing.assert_array_equal(out_h, syms)
-    out_d = np.asarray(
-        ef.decode_family_exact(
-            st, w, means, scales, "gaussian", mn, mx, cfg16, n, cmax=128
-        )
-    )
-    np.testing.assert_array_equal(out_d, syms)
-
-
 # ---------------------------------------------------------------------------
 # DEFAULT-preset (P = 24, W = 32, S = 64) wide-table exact families
 # ---------------------------------------------------------------------------
@@ -301,37 +219,6 @@ def test_wide_tables_golden_vs_host_quantizer_p24(family):
             int(syms[i])
         )
         assert cc == cums[i] and pp == probs[i], (family, i)
-
-
-@pytest.mark.parametrize("family", ["gaussian", "laplace"])
-def test_wide_exact_roundtrip_device_p24(family):
-    """On-device (interpreter on CPU) default-preset encode + decode with
-    wide exact tables, bit-exact with the width-generic host twins."""
-    rng = np.random.RandomState(31)
-    n = 1200
-    means = rng.uniform(-60, 60, n)
-    scales = np.exp(rng.uniform(np.log(0.2), np.log(5.0), n))
-    syms = np.clip(
-        np.round(means + rng.randn(n) * scales), MIN, MAX
-    ).astype(np.int64)
-    cums, probs = ef.exact_ecp(syms, means, scales, family, MIN, MAX, 24)
-    ref_st, ref_w = il2.encode_shared(
-        cums.astype(np.uint64), probs.astype(np.uint64), CFG64
-    )
-    assert ref_st.dtype == np.uint64
-    st, w = ef.encode_family_exact(syms, means, scales, family, MIN, MAX, CFG64)
-    np.testing.assert_array_equal(st, ref_st)
-    np.testing.assert_array_equal(np.asarray(w), ref_w)
-    out_h = ef.decode_family_exact_host(
-        ref_st, ref_w, means, scales, family, MIN, MAX, CFG64, n, cmax=202
-    )
-    np.testing.assert_array_equal(out_h, syms)
-    out_d = np.asarray(
-        ef.decode_family_exact(
-            ref_st, ref_w, means, scales, family, MIN, MAX, CFG64, n, cmax=202
-        )
-    )
-    np.testing.assert_array_equal(out_d, syms)
 
 
 # ---------------------------------------------------------------------------
@@ -376,33 +263,6 @@ def test_binomial_golden_tables_vs_host_quantizer():
     for i in check:
         m = quant.quantize(Binomial(N_TRIALS, ps[i]))
         assert (int(cums[i]), int(probs[i])) == m.ecp(int(syms[i])), i
-
-
-def test_binomial_exact_roundtrip_device():
-    """On-device binomial encode + decode (interpreter on CPU), bit-exact
-    with the host twins, auto-sized cmax."""
-    rng = np.random.RandomState(23)
-    cfg = LaneConfig(num_lanes=256, word_bits=16, state_bits=32, precision=P)
-    n = 2000
-    ns, ps = _binomial_params(rng, n)
-    syms = np.clip(rng.binomial(N_TRIALS, ps), 0, N_TRIALS).astype(np.int64)
-    cums, probs = ef.exact_ecp(syms, ns, ps, "binomial", 0, N_TRIALS, P)
-    ref_st, ref_w = il2.encode_shared(
-        cums.astype(np.uint64), probs.astype(np.uint64), cfg
-    )
-    st, w = ef.encode_family_exact(syms, ns, ps, "binomial", 0, N_TRIALS, cfg)
-    np.testing.assert_array_equal(np.asarray(st), ref_st)
-    np.testing.assert_array_equal(np.asarray(w), ref_w)
-    out_h = ef.decode_family_exact_host(
-        ref_st, ref_w, ns, ps, "binomial", 0, N_TRIALS, cfg, n
-    )
-    np.testing.assert_array_equal(out_h, syms)
-    out_d = np.asarray(
-        ef.decode_family_exact(
-            ref_st, ref_w, ns, ps, "binomial", 0, N_TRIALS, cfg, n
-        )
-    )
-    np.testing.assert_array_equal(out_d, syms)
 
 
 @pytest.mark.parametrize(
@@ -480,110 +340,6 @@ def test_native_wide_boundary_tables_match_numpy_twin_p24(family):
 # ---------------------------------------------------------------------------
 
 
-def test_group_plan_deterministic_and_covering():
-    """group_plan is a pure function of (means, scales): both coder sides
-    derive the identical permutation/segments; segments tile the grid and
-    each segment's cmax covers its own symbols' cores."""
-    rng = np.random.RandomState(77)
-    n, L = 3000, 256
-    means = rng.uniform(-60, 60, n)
-    scales = np.exp(rng.normal(0.7, 0.6, n))
-    perm, segs = ef.group_plan(means, scales, "gaussian", MIN, MAX, 24, L, n)
-    perm2, segs2 = ef.group_plan(means, scales, "gaussian", MIN, MAX, 24, L, n)
-    np.testing.assert_array_equal(perm, perm2)
-    assert segs == segs2
-    assert sorted(perm) == list(range(n))
-    T = -(-n // L)
-    assert segs[0][0] == 0 and sum(s[1] for s in segs) == T
-    for (t0, ns, w), (t0n, _, _) in zip(segs, segs[1:] + [(T, 0, 0)]):
-        assert t0 + ns == t0n
-        assert w % 4 == 0
-    nc = ef.exact_ncore(means, scales, "gaussian", MIN, MAX, 24)[perm]
-    for t0, ns, w in segs:
-        hi = min((t0 + ns) * L, n)
-        if t0 * L < hi:
-            assert int(nc[t0 * L : hi].max()) <= w
-    # widths ascend (sorted order) and the plan respects the segment cap
-    widths = [w for _, _, w in segs]
-    assert widths == sorted(widths) and len(segs) <= 10
-
-
-def test_segment_dp_optimal_small():
-    """The <= K-segment partition from _segment_dp matches brute force on
-    small non-decreasing width sequences."""
-    import itertools
-
-    rng = np.random.RandomState(3)
-    for _ in range(20):
-        T = rng.randint(2, 9)
-        stepw = np.sort(rng.choice([8, 16, 24, 32, 64], size=T))
-        K = rng.randint(1, 4)
-        segs = ef._segment_dp(stepw, K)
-        assert len(segs) <= K and sum(s[1] for s in segs) == T
-        cost = sum(ns * w for _, ns, w in segs)
-        # brute force over boundary subsets
-        best = None
-        for k in range(1, K + 1):
-            for cuts in itertools.combinations(range(1, T), k - 1):
-                edges = [0, *cuts, T]
-                c = sum(
-                    (edges[i + 1] - edges[i]) * int(stepw[edges[i + 1] - 1])
-                    for i in range(k)
-                )
-                best = c if best is None else min(best, c)
-        assert cost == best
-        for t0, ns, w in segs:
-            assert int(stepw[t0 : t0 + ns].max()) == w
-
-
-@pytest.mark.parametrize("family", ["gaussian", "laplace"])
-def test_grouped_roundtrip_device(family):
-    """Grouped encode/decode round-trips bit-exactly and the wire equals
-    the ungrouped encode of the permuted message (host encoder oracle)."""
-    rng = np.random.RandomState(41)
-    n = 1200
-    means = rng.uniform(-60, 60, n)
-    scales = np.exp(rng.normal(0.7, 0.5, n))
-    syms = np.clip(
-        np.round(means + rng.randn(n) * scales), MIN, MAX
-    ).astype(np.int64)
-    perm, segs = ef.group_plan(
-        means, scales, family, MIN, MAX, 24, CFG64.num_lanes, n
-    )
-    assert len(segs) >= 2  # heterogeneous scales -> a real multi-segment plan
-    cums, probs = ef.exact_ecp(
-        syms[perm], means[perm], scales[perm], family, MIN, MAX, 24
-    )
-    ref_st, ref_w = il2.encode_shared(
-        cums.astype(np.uint64), probs.astype(np.uint64), CFG64
-    )
-    out = ef.decode_family_exact_grouped(
-        ref_st, ref_w, means, scales, family, MIN, MAX, CFG64, n
-    )
-    np.testing.assert_array_equal(out, syms)
-
-
-def test_grouped_facade():
-    """tpu.encode/decode_family_exact(grouped=True) round-trip."""
-    import constriction_tpu.tpu as ctpu
-
-    rng = np.random.RandomState(43)
-    n = 700
-    means = rng.uniform(-40, 40, n)
-    scales = np.exp(rng.normal(0.5, 0.5, n))
-    syms = np.clip(
-        np.round(means + rng.randn(n) * scales), MIN, MAX
-    ).astype(np.int64)
-    st, w = ctpu.encode_family_exact(
-        syms, means, scales, "gaussian", MIN, MAX, CFG64, grouped=True
-    )
-    out = ctpu.decode_family_exact(
-        st, np.asarray(w), means, scales, "gaussian", MIN, MAX, n, CFG64,
-        grouped=True,
-    )
-    np.testing.assert_array_equal(np.asarray(out), syms)
-
-
 # ---------------------------------------------------------------------------
 # Surrogate fast path (native/surrogate.cpp): the vectorized approximation
 # of free * CDF only has to stay within the trunc-ambiguity margin of the
@@ -632,8 +388,8 @@ def test_surrogate_error_bound():
 
 
 def test_fast_path_bit_identical_to_pure():
-    """ctpu_exact_ncore + ctpu_exact_tables_packed under CTPU_EXACT_FAST=1
-    vs =0, elementwise, in subprocesses (the flag is latched per process)."""
+    """ctpu_exact_ncore + ctpu_quantized_ecp under CTPU_EXACT_FAST=1 vs =0,
+    elementwise, in subprocesses (the flag is latched per process)."""
     import subprocess
     import sys
 
@@ -655,19 +411,12 @@ chks = []
 for kind in (0, 1, 2):
     nc = np.empty(n, np.uint32)
     lib.ctpu_exact_ncore(kind, -100, 100, 24, means, scales, n, nc)
-    cmax = min(int(nc.max()), 255)
-    G = -(-cmax // 4)
-    tabs = np.empty((n, 1 + 3 * G), np.uint32)
-    bad = lib.ctpu_exact_tables_packed(
-        kind, -100, 100, 24, means, scales, n, cmax, tabs.reshape(-1))
     cums = np.empty(n, np.uint32)
     probs = np.empty(n, np.uint32)
     err = lib.ctpu_quantized_ecp(
         kind, -100, 100, 24, syms, means, scales, n, cums, probs)
     assert err == 0
-    chks.append((int(nc.sum()), int(bad),
-                 int(tabs.sum(dtype=np.uint64)) if not bad else 0,
-                 int(cums.sum(dtype=np.uint64)),
+    chks.append((nc.tolist(), int(cums.sum(dtype=np.uint64)),
                  int(probs.sum(dtype=np.uint64))))
 print(chks)
 """
@@ -687,180 +436,19 @@ print(chks)
     assert outs["1"] == outs["0"], (outs["1"], outs["0"])
 
 
-def test_fused_transposed_fill_matches_two_pass():
-    """ctpu_exact_tables_packed_t (fill + pack + transpose in one C++ pass)
-    must equal ctpu_exact_tables_packed followed by a transpose."""
-    from constriction_tpu import native
-
-    if native.LIB is None:
-        pytest.skip("native library unavailable")
-    rng = np.random.RandomState(9)
-    for fam, kind in (("gaussian", 0), ("laplace", 1), ("cauchy", 2)):
-        for nsteps, R in ((3, 2), (2, 8)):
-            n = nsteps * R * 128
-            means = np.ascontiguousarray(rng.randn(n) * 40)
-            scales = np.ascontiguousarray(np.exp(rng.normal(0.3, 1.0, n)))
-            nc = ef.exact_ncore(means, scales, fam, -100, 100, 24)
-            cmax = int(nc.max())
-            G = -(-cmax // 4)
-            CP1 = 1 + 3 * G
-            t4a = np.empty((nsteps, CP1, R * 128), np.uint32)
-            ncm = np.zeros(1, np.int32)
-            bad = native.LIB.ctpu_exact_tables_packed_t(
-                kind, -100, 100, 24, means, scales, nsteps, R * 128, cmax,
-                t4a.reshape(-1), ncm)
-            assert bad == 0
-            assert 1 <= int(ncm[0]) <= cmax
-            tabs = np.empty((n, CP1), np.uint32)
-            bad = native.LIB.ctpu_exact_tables_packed(
-                kind, -100, 100, 24, means, scales, n, cmax,
-                tabs.reshape(-1))
-            assert bad == 0
-            t4b = np.ascontiguousarray(
-                tabs.reshape(nsteps, R * 128, CP1).transpose(0, 2, 1))
-            np.testing.assert_array_equal(t4a, t4b)
-    # overflow reports the lowest offending symbol (1-based), like the
-    # row-form builder
-    means = np.zeros(256)
-    scales = np.full(256, 50.0)
-    t4 = np.empty((1, 1 + 3 * 2, 256), np.uint32)
-    ncm = np.zeros(1, np.int32)
-    bad = native.LIB.ctpu_exact_tables_packed_t(
-        0, -100, 100, 24, means, scales, 1, 256, 8, t4.reshape(-1), ncm)
-    assert bad == 1
-
-
-# ---------------------------------------------------------------------------
-# On-device table builder (ops/exact_tables_jax.py): f64 window evaluation
-# with margin patching must reproduce the host builder BIT-FOR-BIT.
-# ---------------------------------------------------------------------------
-
-
-def test_device_table_builder_bit_identical():
-    from constriction_tpu import native
-
-    if native.LIB is None:
-        pytest.skip("native library unavailable (patch oracle needed)")
-    assert ef._device_builder_canary(), "device-builder canary failed"
-    rng = np.random.RandomState(77)
-    for fam in ("gaussian", "laplace", "cauchy"):
-        for trial in range(3):
-            R, nsteps = 2, 3
-            n = nsteps * R * 128
-            means = rng.randn(n) * rng.uniform(1, 60)
-            # wide spread incl. sharp + flat + support-edge means
-            scales = np.exp(rng.normal(rng.uniform(-0.5, 1.0), 0.9, size=n))
-            means[:8] = [-108.3, 108.3, -99.9999, 99.9999, 0.0, -50.0,
-                         1e-6, 3e4]
-            nc = ef.exact_ncore(means, scales, fam, -100, 100, 24)
-            cmax = min(max(int(nc.max()), 1), 255)
-            host, ch = ef.packed_tables_device(
-                means, scales, fam, -100, 100, 24, cmax, nsteps, R)
-            built = ef.packed_tables_on_device(
-                means, scales, fam, -100, 100, 24, cmax, nsteps, R)
-            assert built is not None
-            dev, cd = built
-            assert ch == cd
-            np.testing.assert_array_equal(host, np.asarray(dev))
-
-
-def test_grouped_decode_with_device_tables():
-    from constriction_tpu import native
-
-    if native.LIB is None:
-        pytest.skip("native library unavailable")
-    rng = np.random.RandomState(3)
-    n = 6 * 256
-    means = rng.randn(n) * 20
-    scales = np.exp(rng.normal(0.4, 0.6, n))
-    syms = np.clip(np.round(means + scales * rng.randn(n)), MIN, MAX
-                   ).astype(np.int64)
-    st, w = ef.encode_family_exact_grouped(
-        syms, means, scales, "gaussian", MIN, MAX, CFG64)
-    out = ef.decode_family_exact_grouped(
-        np.asarray(st), np.asarray(w), means, scales, "gaussian", MIN, MAX,
-        CFG64, n, device_tables=True)
-    np.testing.assert_array_equal(np.asarray(out), syms)
-
-
-def test_grouped_short_low_core_batch_with_pad_lanes():
-    """Regression (round-4 review): the inactive tail lanes carry the
-    _pad_params unit model, whose core is much wider than a sharp batch's
-    -- the final segment must be sized for it or decode-side table build
-    overflows after a successful encode."""
-    rng = np.random.RandomState(0)
-    for fam in ("gaussian", "laplace", "cauchy"):
-        n, L = 300, 256
-        means = rng.randn(n) * 5
-        scales = np.full(n, 0.02)  # ncore ~ 1-2 per real symbol
-        syms = np.clip(np.round(means + scales * rng.randn(n)), MIN, MAX
-                       ).astype(np.int64)
-        cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
-                         precision=24)
-        st, w = ef.encode_family_exact_grouped(
-            syms, means, scales, fam, MIN, MAX, cfg)
-        out = ef.decode_family_exact_grouped(
-            np.asarray(st), np.asarray(w), means, scales, fam, MIN, MAX,
-            cfg, n)
-        np.testing.assert_array_equal(np.asarray(out), syms)
-
-
-def test_facade_grouped_default_cfg_round_trip():
-    """Regression (round-4 review): grouped coding only exists for the
-    S=64 path; the facade's default cfg must pick it, not the narrow P=12
-    config whose stream the grouped decoder rejects."""
-    import constriction_tpu.tpu as ctpu
-
-    rng = np.random.RandomState(4)
-    n = 4096
-    means = rng.randn(n) * 10
-    scales = np.exp(rng.normal(0.3, 0.5, n))
-    syms = np.clip(np.round(means + scales * rng.randn(n)), MIN, MAX
-                   ).astype(np.int64)
-    st, w = ctpu.encode_family_exact(
-        syms, means, scales, "gaussian", MIN, MAX, grouped=True)
-    out = ctpu.decode_family_exact(
-        st, w, means, scales, "gaussian", MIN, MAX, n, grouped=True)
-    np.testing.assert_array_equal(np.asarray(out), syms)
-
-
-def test_binomial_ncore_estimate_upper_bound():
-    """The deterministic binomial core-size bound (a*sd + b half-width,
-    IEEE sqrt) covers the exact core over the calibration grid -- the
-    property that makes grouped binomial coding safe.  (Even a rare
-    underestimate could only cost speed: derive overflow routes those
-    rows to the host builder.)"""
-    rng = np.random.RandomState(4)
-    for Pp in (16, 24):
-        for NT in (8, 20, 60, 255):
-            ps = np.concatenate([
-                rng.uniform(0.001, 0.999, 800),
-                rng.uniform(0.001, 0.03, 200),
-                rng.uniform(0.97, 0.999, 200),
-            ])
-            ns = np.full(len(ps), float(NT))
-            nc = ef.exact_ncore(ns, ps, "binomial", 0, NT, Pp).astype(
-                np.int64
-            )
-            est = ef._ncore_estimate(ns, ps, "binomial", 0, NT)
-            assert np.all(nc <= est), (Pp, NT)
-
-
-def test_binomial_grouped_roundtrip():
-    """Grouped (core-size-sorted, tight-cmax segment) coding now covers
-    binomial: bit-exact round trip host + device-interpret."""
-    rng = np.random.RandomState(6)
-    NT = 60
-    cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64,
-                     precision=24)
-    n = 30_000
-    ps = rng.uniform(0.02, 0.98, n)
-    ns = np.full(n, float(NT))
-    syms = np.clip(rng.binomial(NT, ps), 0, NT).astype(np.int64)
-    st, stream = ef.encode_family_exact_grouped(
-        syms, ns, ps, "binomial", 0, NT, cfg
-    )
-    out = ef.decode_family_exact_grouped(
-        st, stream, ns, ps, "binomial", 0, NT, cfg, n
-    )
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+@pytest.mark.parametrize("prec,W,S", [(12, 16, 32), (24, 32, 64)])
+def test_exact_host_roundtrip(family, prec, W, S):
+    """exact_ecp planes coded by the ILANS2 host encoder decode back through
+    the boundary tables (decode_family_exact_host), at both presets."""
+    rng = np.random.RandomState(prec + len(family))
+    n, L = 2500, 64
+    means, scales = _params(rng, n)
+    syms = np.clip(np.round(means + rng.randn(n) * scales), MIN, MAX).astype(
+        np.int64)
+    cums, probs = ef.exact_ecp(syms, means, scales, family, MIN, MAX, prec)
+    cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S, precision=prec)
+    st, stream = il2.encode_shared(cums, probs, cfg)
+    out = ef.decode_family_exact_host(st, stream, means, scales, family, MIN,
+                                      MAX, cfg, n)
     np.testing.assert_array_equal(out, syms)

@@ -1,4 +1,4 @@
-"""Smoke-run the examples so they stay green (CPU / virtual mesh)."""
+"""Smoke-run the examples so they stay green (CPU, four virtual devices)."""
 
 import os
 import subprocess
@@ -16,11 +16,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "multichip_sharded.py",
         "reference_exact_and_seek.py",
         "default_preset.py",
+        "compact_framing.py",
     ],
 )
 def test_example_runs(script):
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     r = subprocess.run(
         [sys.executable, os.path.join(ROOT, "examples", script)],
         capture_output=True, text=True, timeout=900, env=env,

@@ -51,7 +51,7 @@ def test_v2_roundtrip(P, W, S, n):
 
 @pytest.mark.parametrize("P,W,S", PRESETS)
 def test_v2_device_host_identical(P, W, S):
-    """Device (interpret) and host encoders emit the identical container;
+    """Device (XLA route) and host encoders emit the identical container;
     both decoders invert it."""
     cdf, p, rng = _model(80, 1.5, P, seed=P)
     syms = rng.choice(80, size=40_000, p=p)

@@ -49,8 +49,15 @@ def test_jax_decode_matches_host():
     cfg = LaneConfig(num_lanes=64, word_bits=16, state_bits=32, precision=12)
     data = il2.encode_iid_categorical2(symbols, model.cdf, cfg)
     init_states, stream, n, _ = il2.unpack_container2(data)
-    out = np.asarray(jc2.jax_decode_iid2(init_states, stream, model.cdf, cfg, n))[:n]
-    assert np.array_equal(out, symbols)
+    T = -(-n // 64)
+    out, fin = jc2.decode_blocks(
+        init_states[None], stream[None].astype(np.uint32),
+        np.array([len(stream)], np.int32), model.cdf.astype(np.uint32),
+        jc2.lookup_table(model.cdf, 12), np.array([n], np.int32),
+        cfg=cfg, T=T,
+    )
+    assert np.array_equal(np.asarray(out)[0, :n], symbols)
+    assert np.all(np.asarray(fin) == 1 << 16)
 
 
 def test_jax_encode_matches_host():
@@ -66,15 +73,17 @@ def test_jax_encode_matches_host():
     cfg = LaneConfig(num_lanes=128, word_bits=16, state_bits=32, precision=12)
     T = -(-N // 128)
 
-    cums = np.zeros(T * 128, np.uint32)
-    cums[:N] = cdf64[symbols]
-    prb = np.ones(T * 128, np.uint32)
-    prb[:N] = (cdf64[symbols + 1] - cdf64[symbols]).astype(np.uint32)
-    max_stream = T * 128 + 128
+    syms = np.zeros((1, T * 128), np.int32)
+    syms[0, :N] = symbols
+    seeds = np.full((1, 128), 1 << 16, np.uint32)
+    max_stream = T * 128
 
-    st_j, stream_j, len_j = jax.jit(
-        lambda c, p: jc2.encode_shared_tables(c, p, cfg, T, N, max_stream)
-    )(jnp.asarray(cums.reshape(T, 128)), jnp.asarray(prb.reshape(T, 128)))
+    stream_j, st_j, len_j = jax.jit(
+        lambda s, sd: jc2.encode_blocks(
+            s, sd, jnp.asarray(model.cdf, jnp.uint32),
+            jnp.array([N], jnp.int32), cfg=cfg, T=T)
+    )(jnp.asarray(syms), jnp.asarray(seeds))
+    st_j, stream_j, len_j = st_j[0], stream_j[0], len_j[0]
     st_h, stream_h = il2.encode_shared(
         cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols], cfg
     )
@@ -85,7 +94,7 @@ def test_jax_encode_matches_host():
 
 
 def test_per_symbol_rows_roundtrip():
-    """Rank-2 categorical (a different PMF per symbol), gather-free decode."""
+    """Rank-2 categorical (a different PMF per symbol), XLA decode."""
     import jax
     import jax.numpy as jnp
 
@@ -151,19 +160,20 @@ def test_decode_shared_batched():
         st, w = il2.encode_shared(cdf[blk], cdf[blk + 1] - cdf[blk], cfg)
         states[b] = st
         streams[b, : len(w)] = w
-    out = np.asarray(
-        jc2.decode_shared_batched(
-            jnp.asarray(states), jnp.asarray(streams), model.cdf.astype(np.uint64),
-            cfg, T, block_len,
-        )
+    out, _ = jc2.decode_blocks(
+        jnp.asarray(states), jnp.asarray(streams),
+        jnp.full((B,), cap, jnp.int32), jnp.asarray(model.cdf, jnp.uint32),
+        jnp.asarray(jc2.lookup_table(model.cdf, 12)),
+        jnp.array([block_len], jnp.int32), cfg=cfg, T=T,
     )
+    out = np.asarray(out)
     for b, blk in enumerate(blocks):
         np.testing.assert_array_equal(out[b, :block_len], blk)
 
 
 def test_checkpoint_seek_decode():
     """Periodic decoder checkpoints let the suffix be decoded from the
-    middle, bit-exactly equal to the full decode's tail (host + Pallas)."""
+    middle, bit-exactly equal to the full decode's tail (host + device)."""
     rng = np.random.RandomState(21)
     alphabet, n, L = 40, 20000, 128
     probs = rng.dirichlet(np.ones(alphabet))

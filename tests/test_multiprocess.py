@@ -1,8 +1,7 @@
 """Multi-process mesh validation: 2 OS processes x 4 CPU devices, one
 global 8-device mesh, cross-process `all_gather` in the decode program.
 
-This replicates the multi-host/DCN boundary of a real v5p slice
-(SURVEY section 4 implication c): unlike the single-process virtual mesh in
+This replicates the process boundary of a multi-host cluster: unlike the single-process virtual mesh in
 the other tests, the collective here crosses jax.distributed's
 coordinator-managed process group.
 """
@@ -57,4 +56,3 @@ def test_two_process_mesh_decode():
             pytest.skip("jax.distributed CPU backend unavailable here")
         assert p.returncode == 0, f"worker {pid} failed:\n{out[-3000:]}"
         assert f"MP_OK pid={pid} devices=8" in out, out[-3000:]
-        assert f"MP_RANGE_OK pid={pid} devices=8" in out, out[-3000:]

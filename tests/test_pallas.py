@@ -1,9 +1,9 @@
-"""Pallas ILANS2 decoder vs the numpy oracle (interpreter mode on CPU).
+"""The ILANS2 device coder (ops/device_coder.py) vs the numpy oracle.
 
-The kernel itself (constriction_tpu/ops/pallas_coder.py) runs compiled on
-TPU; under the test CPU mesh it runs through the Pallas interpreter, which
-executes the identical lowered program semantics (DMA windows, butterfly
-rolls, packed compare-sum).
+On the CPU the route selector (ops/route.py) picks the plain-XLA coder
+(ops/jax_coder2.py); on a GPU the same entry points run the CUDA kernels,
+which tests/test_gpu_kernels.py compares with this path on the card.  The
+file keeps its historical name.
 """
 
 import numpy as np
@@ -13,7 +13,8 @@ from constriction_tpu.models.categorical import (
     ContiguousCategoricalEntropyModel,
 )
 from constriction_tpu.ops import interleaved2 as il2
-from constriction_tpu.ops import pallas_coder as pc
+from constriction_tpu.ops import device_coder as dc
+from constriction_tpu.ops import route
 from constriction_tpu.ops.interleaved import LaneConfig
 
 
@@ -32,7 +33,7 @@ def _roundtrip(L, n, alphabet, seed, precision=12):
     )
     ref = il2.decode_shared_cdf(init_states, stream, n, cdf, cfg)
     assert np.array_equal(ref, symbols)
-    out = np.asarray(pc.decode_shared_pallas(init_states, stream, cdf, cfg, n))
+    out = np.asarray(dc.decode(init_states, stream, n, cdf, cfg))
     np.testing.assert_array_equal(out, symbols)
 
 
@@ -52,7 +53,7 @@ def test_pallas_decode_matches_oracle(L, n, alphabet, seed):
 
 
 def test_pallas_decode_skewed_model():
-    # very skewed model: long refill bursts stress the butterfly
+    # very skewed model: long refill bursts stress the rank computation
     rng = np.random.RandomState(9)
     alphabet = 64
     w = np.exp(rng.randn(alphabet) * 4)
@@ -68,78 +69,13 @@ def test_pallas_decode_skewed_model():
     init_states, stream = il2.encode_shared(
         cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols], cfg
     )
-    out = np.asarray(pc.decode_shared_pallas(init_states, stream, cdf, cfg, n))
+    out = np.asarray(dc.decode(init_states, stream, n, cdf, cfg))
     np.testing.assert_array_equal(out, symbols)
-
-
-def test_packed_compare_sum_bounds():
-    # the packed-accumulator invariant: every partial prob is a genuine
-    # interval width, so fields never interfere (kernel docstring).
-    rng = np.random.RandomState(3)
-    for K in (2, 5, 100, 255):
-        probs = rng.dirichlet(np.full(K, 0.3))
-        m = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-            probs, 12
-        )
-        c = m.cdf.astype(np.int64)
-        assert c[0] == 0 and c[-1] == 1 << 12
-        deltas = np.diff(c)
-        assert deltas.min() >= 1  # leaky
-        assert 2 * 12 + int(max(K - 1, 1)).bit_length() <= 32
 
 
 # ---------------------------------------------------------------------------
 # ILANS2-R (shared-stream interleaved RANGE coding)
 # ---------------------------------------------------------------------------
-
-def _native_available():
-    from constriction_tpu import native
-
-    return native.LIB is not None
-
-
-@pytest.mark.skipif(not _native_available(), reason="needs native codec")
-@pytest.mark.parametrize(
-    "L,n,alphabet,seed",
-    [
-        (128, 1024, 16, 0),
-        (256, 2000, 100, 1),
-        (128, 100, 5, 2),
-        (256, 300, 2, 3),
-    ],
-)
-def test_pallas_range_decode_matches_oracle(L, n, alphabet, seed):
-    rng = np.random.RandomState(seed)
-    probs = rng.dirichlet(np.full(alphabet, 2.0))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 12
-    )
-    cdf = model.cdf
-    symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
-    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    points, stream = il2.encode_iid_categorical_range(symbols, cdf, cfg)
-    ref = il2.decode_shared_range_cdf(points, stream, n, cdf, cfg)
-    assert np.array_equal(ref, symbols)
-    out = np.asarray(pc.decode_shared_range_pallas(points, stream, cdf, cfg, n))
-    np.testing.assert_array_equal(out, symbols)
-
-
-def test_exact_div_corrections():
-    # the f32-divide + correction must be exact over adversarial operands
-    import jax.numpy as jnp
-
-    from constriction_tpu.ops.pallas_coder import _exact_div
-
-    rng = np.random.RandomState(0)
-    scale = rng.randint(16, 1 << 20, size=4096).astype(np.uint32)
-    q_true = rng.randint(0, 1 << 12, size=4096).astype(np.uint32)
-    r = (rng.rand(4096) * scale).astype(np.uint32)
-    # include exact-boundary remainders 0 and scale-1
-    r[:128] = 0
-    r[128:256] = scale[128:256] - 1
-    diff = (q_true.astype(np.uint64) * scale + r).astype(np.uint32)
-    got = np.asarray(_exact_div(jnp.asarray(diff), jnp.asarray(scale)))
-    np.testing.assert_array_equal(got, q_true)
 
 
 # ---------------------------------------------------------------------------
@@ -168,13 +104,13 @@ def test_pallas_encode_bit_exact(L, n, alphabet, seed):
     ref_states, ref_stream = il2.encode_shared(
         cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols], cfg
     )
-    got_states, got_stream = pc.encode_iid_pallas(symbols, cdf, cfg)
+    got_states, got_stream = dc.encode(symbols, cdf, cfg)
     np.testing.assert_array_equal(np.asarray(got_states), ref_states)
     np.testing.assert_array_equal(np.asarray(got_stream), ref_stream)
 
 
 def test_pallas_encode_decode_roundtrip():
-    # all-TPU-path round trip: Pallas encode -> Pallas decode
+    # device encode -> device decode
     rng = np.random.RandomState(11)
     alphabet, n, L = 40, 3000, 256
     probs = rng.dirichlet(np.full(alphabet, 1.0))
@@ -184,28 +120,11 @@ def test_pallas_encode_decode_roundtrip():
     cdf = model.cdf
     symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
     cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    states, stream = pc.encode_iid_pallas(symbols, cdf, cfg)
+    states, stream = dc.encode(symbols, cdf, cfg)
     out = np.asarray(
-        pc.decode_shared_pallas(np.asarray(states), np.asarray(stream), cdf, cfg, n)
+        dc.decode(np.asarray(states), np.asarray(stream), n, cdf, cfg)
     )
     np.testing.assert_array_equal(out, symbols)
-
-
-@pytest.mark.skipif(not _native_available(), reason="needs native codec")
-def test_pallas_range_decode_detects_invalid_data():
-    rng = np.random.RandomState(0)
-    alphabet, n, L = 20, 1000, 128
-    probs = rng.dirichlet(np.full(alphabet, 2.0))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 12
-    )
-    cdf = model.cdf
-    symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
-    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    points, stream = il2.encode_iid_categorical_range(symbols, cdf, cfg)
-    garbage_points = np.full_like(points, 0xFFFFFFFF)
-    with pytest.raises(ValueError, match="inconsistent"):
-        pc.decode_shared_range_pallas(garbage_points, stream, cdf, cfg, n)
 
 
 def test_pallas_prefix_decode():
@@ -226,14 +145,14 @@ def test_pallas_prefix_decode():
     )
     for n_prefix in (L, 3 * L, 5 * L):
         out = np.asarray(
-            pc.decode_shared_pallas(states, stream, cdf, cfg, n_prefix)
+            dc.decode(states, stream, n_prefix, cdf, cfg)
         )
         np.testing.assert_array_equal(out, symbols[:n_prefix])
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_pallas_fuzz_roundtrips(seed):
-    """Randomized end-to-end property: Pallas encode -> Pallas decode is the
+    """Randomized end-to-end property: device encode -> device decode is the
     identity for random lane counts, alphabet sizes, skews and lengths."""
     rng = np.random.RandomState(1000 + seed)
     L = 128 * int(rng.choice([1, 2, 3, 4]))
@@ -247,57 +166,16 @@ def test_pallas_fuzz_roundtrips(seed):
     cdf = model.cdf
     symbols = rng.choice(alphabet, size=n, p=w).astype(np.int64)
     cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    states, stream = pc.encode_iid_pallas(symbols, cdf, cfg)
+    states, stream = dc.encode(symbols, cdf, cfg)
     out = np.asarray(
-        pc.decode_shared_pallas(np.asarray(states), np.asarray(stream), cdf, cfg, n)
-    )
-    np.testing.assert_array_equal(out, symbols)
-
-
-# ---------------------------------------------------------------------------
-# ILANS2-R TPU encoder (two-phase carry resolution)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.skipif(not _native_available(), reason="needs native codec")
-@pytest.mark.parametrize(
-    "L,n,alphabet,seed",
-    [
-        (128, 1000, 16, 0),
-        (256, 5000, 100, 1),
-        (128, 128, 5, 2),
-        (128, 100, 7, 3),  # tail-only, seal feeds the header
-        (384, 9000, 2, 4),  # binary model: long runs stress carries
-    ],
-)
-def test_pallas_range_encode_bit_exact(L, n, alphabet, seed):
-    from constriction_tpu.ops import pallas_range_enc as pre
-
-    rng = np.random.RandomState(seed)
-    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    # skewed models produce 0xFFFF-heavy words -> deeper carry ripples
-    w = np.exp(rng.randn(alphabet) * 3)
-    probs = w / w.sum()
-    if alphabet == 2:
-        probs = np.array([0.999, 0.001])
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 12
-    )
-    cdf = model.cdf
-    symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
-    ref_pts, ref_stream = il2.encode_iid_categorical_range(symbols, cdf, cfg)
-    got_pts, got_stream = pre.encode_iid_range_pallas(symbols, cdf, cfg)
-    np.testing.assert_array_equal(got_pts, ref_pts)
-    np.testing.assert_array_equal(got_stream, ref_stream)
-    # and the Pallas range decoder reads it back
-    out = np.asarray(
-        pc.decode_shared_range_pallas(got_pts, got_stream, cdf, cfg, n)
+        dc.decode(np.asarray(states), np.asarray(stream), n, cdf, cfg)
     )
     np.testing.assert_array_equal(out, symbols)
 
 
 def test_pallas_decode_large_alphabet():
-    """K > 255 exceeds the packed compare-sum field budget; the segmented
-    two-level path must take over transparently (bitstream unchanged)."""
+    """A 1000-symbol alphabet codes bit-exactly (the decoder's lookup table
+    covers every quantile)."""
     rng = np.random.RandomState(12)
     alphabet, n, L = 1000, 3000, 128
     probs = rng.dirichlet(np.full(alphabet, 0.5))
@@ -307,7 +185,7 @@ def test_pallas_decode_large_alphabet():
     cdf = model.cdf
     symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
     cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    states, stream = pc.encode_iid_pallas(symbols, cdf, cfg)
+    states, stream = dc.encode(symbols, cdf, cfg)
     cdf64 = cdf.astype(np.uint64)
     ref_states, ref_stream = il2.encode_shared(
         cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols], cfg
@@ -315,15 +193,15 @@ def test_pallas_decode_large_alphabet():
     np.testing.assert_array_equal(np.asarray(states), ref_states)
     np.testing.assert_array_equal(np.asarray(stream), ref_stream)
     out = np.asarray(
-        pc.decode_shared_pallas(ref_states, ref_stream, cdf, cfg, n)
+        dc.decode(ref_states, ref_stream, n, cdf, cfg)
     )
     np.testing.assert_array_equal(out, symbols)
 
 
 @pytest.mark.parametrize("precision", [8, 10, 14, 16])
 def test_pallas_precision_range(precision):
-    """The kernels cover the full precision range at W=16/S=32 (wide
-    compare-sum beyond the packed budget; P=16 uses S = W + P exactly)."""
+    """The device coder covers the full precision range at W=16/S=32
+    (P=16 uses S = W + P exactly)."""
     rng = np.random.RandomState(precision)
     alphabet = min(50, (1 << precision) - 2)
     n, L = 3000, 128
@@ -338,134 +216,11 @@ def test_pallas_precision_range(precision):
     ref_st, ref_w = il2.encode_shared(
         cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols], cfg
     )
-    st, w = pc.encode_iid_pallas(symbols, cdf, cfg)
+    st, w = dc.encode(symbols, cdf, cfg)
     np.testing.assert_array_equal(np.asarray(st), ref_st)
     np.testing.assert_array_equal(np.asarray(w), ref_w)
-    out = np.asarray(pc.decode_shared_pallas(ref_st, ref_w, cdf, cfg, n))
+    out = np.asarray(dc.decode(ref_st, ref_w, n, cdf, cfg))
     np.testing.assert_array_equal(out, symbols)
-
-
-@pytest.mark.skipif(not _native_available(), reason="needs native codec")
-@pytest.mark.parametrize("precision", [8, 14, 16])
-def test_pallas_range_precision_range(precision):
-    """Range encode kernel covers P <= 16 (2P packed accumulator bits) and
-    the decode kernel inverts it across the precision range."""
-    from constriction_tpu.ops import pallas_range_enc as pre
-
-    rng = np.random.RandomState(precision + 50)
-    alphabet = min(40, (1 << precision) - 2)
-    n, L = 2000, 128
-    probs = rng.dirichlet(np.full(alphabet, 1.0))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, precision
-    )
-    cdf = model.cdf
-    symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
-    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=precision)
-    points, stream = il2.encode_iid_categorical_range(symbols, cdf, cfg)
-    gp, gw = pre.encode_iid_range_pallas(symbols, cdf, cfg)
-    np.testing.assert_array_equal(gp, points)
-    np.testing.assert_array_equal(gw, stream)
-    out = np.asarray(pc.decode_shared_range_pallas(points, stream, cdf, cfg, n))
-    np.testing.assert_array_equal(out, symbols)
-
-@pytest.mark.parametrize("precision", [1, 4, 8, 9, 10, 12, 16])
-def test_exact_div_wide_quotient(precision):
-    """_exact_div must be exact over the rANS encoder's full envelope:
-    scale = prob < 2^P, quotient up to 2^(32-P) (states < prob << (S-P)).
-    At P < 11 the quotient exceeds the default 2^21 bound and the wide
-    two-stage correction path must take over (this was a real encoder bug
-    at precision 8: off-by-one quotients corrupted emitted words)."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(precision)
-    qbits = 32 - precision
-    fn = jax.jit(lambda d, s: pc._exact_div(d, s, qbits=qbits))
-    hi = 1 << precision
-    scales = np.unique(
-        np.concatenate([
-            rng.randint(1, hi, size=2000),
-            np.arange(1, min(hi, 257)),
-            np.array([hi - 1, max(hi - 2, 1), 1]),
-        ])
-    ).astype(np.uint32)
-    s = scales[rng.randint(0, len(scales), size=100000)]
-    lim = s.astype(np.uint64) << np.uint64(qbits)
-    d = (rng.randint(0, 1 << 62, size=s.size).astype(np.uint64) % lim).astype(
-        np.uint32
-    )
-    q0 = d // s
-    edge = rng.randint(0, 3, size=s.size)
-    d = np.where(edge == 1, (q0 * s).astype(np.uint32), d)
-    d = np.where((edge == 2) & (q0 > 0), (q0 * s - 1).astype(np.uint32), d)
-    got = np.asarray(fn(jnp.asarray(d), jnp.asarray(s)))
-    np.testing.assert_array_equal(got, (d // s).astype(np.uint32))
-
-@pytest.mark.parametrize(
-    "K,precision", [(17, 12), (100, 12), (256, 12), (300, 12), (1000, 12),
-                    (5000, 14), (1000, 16), (100, 8), (33, 16)]
-)
-def test_compare_sum_segmented_oracle(K, precision):
-    """The segmented two-level compare-sum must return (sym, cum, prob)
-    identical to a searchsorted oracle at every boundary quantile, its
-    neighbours, and random quantiles, for all segment sizes."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(K + precision)
-    probs = rng.dirichlet(np.full(K, 0.5))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, precision
-    )
-    c = model.cdf.astype(np.int64)
-    qs = np.unique(
-        np.clip(
-            np.concatenate([
-                c[:-1], c[1:] - 1, c[:-1] + 1,
-                rng.randint(0, 1 << precision, size=2000),
-                [0, (1 << precision) - 1],
-            ]),
-            0, (1 << precision) - 1,
-        )
-    ).astype(np.uint32)
-    want_sym = np.searchsorted(c, qs, side="right") - 1
-    want_cum = c[want_sym]
-    want_prob = c[want_sym + 1] - c[want_sym]
-    for B2 in (8, 16, 64, None):
-        if B2 is not None and B2 >= K:
-            continue
-        fn = jax.jit(
-            lambda q: pc._compare_sum_segmented(q, c, precision, B2=B2)
-        )
-        sym, cum, prob = (np.asarray(x) for x in fn(jnp.asarray(qs)))
-        np.testing.assert_array_equal(sym, want_sym)
-        np.testing.assert_array_equal(cum, want_cum)
-        np.testing.assert_array_equal(prob, want_prob)
-
-@pytest.mark.parametrize("K,precision", [(300, 12), (1000, 12), (5000, 14), (1000, 16)])
-def test_cum_prob_from_sym_segmented_oracle(K, precision):
-    """Encode-side segmented (cum, prob) lookup must match the CDF exactly
-    for every symbol, at multiple segment sizes."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(K)
-    probs = rng.dirichlet(np.full(K, 0.5))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, precision
-    )
-    c = model.cdf.astype(np.int64)
-    syms = np.concatenate(
-        [np.arange(K), rng.randint(0, K, size=2000)]
-    ).astype(np.int32)
-    for B2 in (8, 64, None):
-        fn = jax.jit(
-            lambda s: pc._cum_prob_from_sym_segmented(s, c, precision, B2=B2)
-        )
-        cum, prob = (np.asarray(x) for x in fn(jnp.asarray(syms)))
-        np.testing.assert_array_equal(cum, c[syms])
-        np.testing.assert_array_equal(prob, c[syms + 1] - c[syms])
 
 
 def _leaky_cdf(rng, K, precision):
@@ -475,41 +230,10 @@ def _leaky_cdf(rng, K, precision):
     return np.concatenate([[0], np.cumsum(1 + extra)]).astype(np.int64)
 
 
-@pytest.mark.parametrize(
-    "K,precision",
-    [(300, 12), (1000, 12), (4095, 12), (4096, 12), (1000, 13), (2000, 11),
-     (500, 15), (257, 10), (256, 9)],
-)
-def test_compare_sum_bitmap_oracle(K, precision):
-    """The K-independent bitmap-rank inversion must match the searchsorted
-    oracle on EVERY quantile in [0, 2^P)."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(K * 31 + precision)
-    c = _leaky_cdf(rng, K, precision)
-    qs = np.arange(1 << precision, dtype=np.uint32)
-    want_sym = np.searchsorted(c, qs, side="right") - 1
-    want_cum = c[want_sym]
-    want_prob = c[want_sym + 1] - c[want_sym]
-    for bb in (None, 5, 6):
-        if bb is not None and bb >= precision:
-            continue
-        fn = jax.jit(
-            lambda q, bb=bb: pc._compare_sum_bitmap(q, c, precision,
-                                                    bucket_bits=bb)
-        )
-        sym, cum, prob = (np.asarray(x) for x in fn(jnp.asarray(qs)))
-        np.testing.assert_array_equal(sym, want_sym)
-        np.testing.assert_array_equal(cum, want_cum)
-        np.testing.assert_array_equal(prob, want_prob)
-
-
 @pytest.mark.parametrize("K", [1000, 4096])
 def test_pallas_decode_bitmap_roundtrip(K):
-    """End-to-end Pallas decode at large K routes through the bitmap-rank
-    inversion (P=12 <= 15 gate) and must stay bitstream-identical to the
-    host oracle."""
+    """End-to-end device decode at dense alphabets (K up to 2^P) stays
+    identical to the host oracle."""
     rng = np.random.RandomState(K)
     n, L, P = 5000, 256, 12
     cdf = _leaky_cdf(rng, K, P)
@@ -522,173 +246,13 @@ def test_pallas_decode_bitmap_roundtrip(K):
     )
     ref = il2.decode_shared_cdf(states, stream, n, cdf, cfg)
     np.testing.assert_array_equal(ref, symbols)
-    out = np.asarray(pc.decode_shared_pallas(states, stream, cdf, cfg, n))
+    out = np.asarray(dc.decode(states, stream, n, cdf, cfg))
     np.testing.assert_array_equal(out, symbols)
-
-
-@pytest.mark.parametrize(
-    "K,precision", [(17, 12), (60, 12), (100, 12), (255, 12), (300, 12),
-                    (1000, 12), (100, 16), (700, 16), (500, 15), (40, 8)]
-)
-def test_all_inversion_forms_agree(K, precision):
-    """Every eligible (sym, cum, prob) inversion form must produce the
-    identical answer on the same quantiles: the dispatcher's choice can
-    never change the bitstream."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(K * 7 + precision)
-    if K > (1 << precision):
-        pytest.skip("alphabet larger than quantile space")
-    extra = rng.multinomial((1 << precision) - K, rng.dirichlet(np.full(K, 0.5)))
-    c = np.concatenate([[0], np.cumsum(1 + extra)]).astype(np.int64)
-    qs = np.unique(np.concatenate([
-        c[:-1], c[1:] - 1, rng.randint(0, 1 << precision, 3000),
-        [0, (1 << precision) - 1],
-    ])).astype(np.uint32)
-    want = np.searchsorted(c, qs.astype(np.int64), side="right") - 1
-
-    forms = [("wide", lambda q: pc._compare_sum_wide(q, c, precision))]
-    if 2 * precision + max(K - 1, 1).bit_length() <= 32:
-        forms.append(("packed", lambda q: pc._compare_sum_packed(q, c, precision)))
-    if K > 16:
-        forms.append(("segmented", lambda q: pc._compare_sum_segmented(q, c, precision)))
-    if K > 8:
-        forms.append(("segtree", lambda q: pc._compare_sum_segtree(q, c, precision)))
-    if 5 < precision <= 15:
-        forms.append(("bitmap", lambda q: pc._compare_sum_bitmap(q, c, precision)))
-    for name, fn in forms:
-        sym, cum, prob = (np.asarray(x) for x in jax.jit(fn)(jnp.asarray(qs)))
-        np.testing.assert_array_equal(sym, want, err_msg=name)
-        np.testing.assert_array_equal(cum, c[want], err_msg=name)
-        np.testing.assert_array_equal(prob, c[want + 1] - c[want], err_msg=name)
-
-
-def test_force_inversion_env_knob(monkeypatch):
-    """CTPU_FORCE_INVERSION steers the dispatcher to an eligible form
-    (identical answers); an ineligible name warns and falls back to auto."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(3)
-    K, P = 100, 12
-    extra = rng.multinomial((1 << P) - K, rng.dirichlet(np.full(K, 0.5)))
-    c = np.concatenate([[0], np.cumsum(1 + extra)]).astype(np.int64)
-    qs = jnp.asarray(rng.randint(0, 1 << P, 512).astype(np.uint32))
-    want = np.searchsorted(c, np.asarray(qs, np.int64), side="right") - 1
-
-    for forced in ("segtree", "segmented", "wide", "bitmap"):
-        monkeypatch.setenv("CTPU_FORCE_INVERSION", forced)
-        sym, cum, prob = (np.asarray(x) for x in pc._compare_sum_auto(qs, c, P))
-        np.testing.assert_array_equal(sym, want, err_msg=forced)
-        np.testing.assert_array_equal(cum, c[want], err_msg=forced)
-        np.testing.assert_array_equal(prob, c[want + 1] - c[want], err_msg=forced)
-
-    # ineligible form: packed needs 2P + log2(K) <= 32, violated at P=16
-    P16 = 16
-    extra16 = rng.multinomial((1 << P16) - K, rng.dirichlet(np.full(K, 0.5)))
-    c16 = np.concatenate([[0], np.cumsum(1 + extra16)]).astype(np.int64)
-    qs16 = jnp.asarray(rng.randint(0, 1 << P16, 512).astype(np.uint32))
-    want16 = np.searchsorted(c16, np.asarray(qs16, np.int64), side="right") - 1
-    monkeypatch.setenv("CTPU_FORCE_INVERSION", "packed")
-    with pytest.warns(UserWarning, match="not valid"):
-        sym, _, _ = pc._compare_sum_auto(qs16, c16, P16)
-    np.testing.assert_array_equal(np.asarray(sym), want16)
-
-
-def test_force_inversion_rebuilds_cached_kernels(monkeypatch):
-    """The decoder-builder caches key on the CTPU_FORCE_INVERSION value:
-    flipping the knob after a kernel has been built must produce a fresh
-    build (the knob is read at trace time inside the builder), and
-    unsetting it must return the original cached build."""
-    rng = np.random.RandomState(7)
-    K, P = 100, 12
-    extra = rng.multinomial((1 << P) - K, rng.dirichlet(np.full(K, 0.5)))
-    cdf_t = tuple(int(x) for x in np.concatenate([[0], np.cumsum(1 + extra)]))
-    cfg = LaneConfig(num_lanes=256, word_bits=16, state_bits=32, precision=P)
-
-    monkeypatch.delenv("CTPU_FORCE_INVERSION", raising=False)
-    auto_build = pc._build_decoder(cdf_t, cfg, 2, 256, 256, True)
-    monkeypatch.setenv("CTPU_FORCE_INVERSION", "wide")
-    forced_build = pc._build_decoder(cdf_t, cfg, 2, 256, 256, True)
-    assert forced_build is not auto_build
-    monkeypatch.delenv("CTPU_FORCE_INVERSION")
-    again = pc._build_decoder(cdf_t, cfg, 2, 256, 256, True)
-    assert again is auto_build
-
-@pytest.mark.parametrize(
-    "K,precision",
-    [(300, 12), (1000, 12), (4095, 12), (4096, 12), (1000, 13), (2000, 11),
-     (500, 15), (257, 10), (100, 6)],
-)
-def test_cum_prob_from_sym_bitmap_oracle(K, precision):
-    """The K-independent bitmap-SELECT encode lookup (sym-th set bit of the
-    boundary bitmap) must match the CDF exactly on EVERY symbol."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(K * 13 + precision)
-    if K > (1 << precision):
-        pytest.skip("alphabet larger than quantile space")
-    c = _leaky_cdf(rng, K, precision)
-    syms = np.arange(K, dtype=np.int32)
-    for bb in (None, 5, 7, 9):
-        if bb is not None and bb >= precision:
-            continue
-        fn = jax.jit(
-            lambda s, bb=bb: pc._cum_prob_from_sym_bitmap(
-                s, c, precision, bucket_bits=bb
-            )
-        )
-        cum, prob = (np.asarray(x) for x in fn(jnp.asarray(syms)))
-        np.testing.assert_array_equal(cum, c[syms], err_msg=f"b={bb}")
-        np.testing.assert_array_equal(
-            prob, c[syms + 1] - c[syms], err_msg=f"b={bb}"
-        )
-
-
-@pytest.mark.parametrize(
-    "K,precision", [(16, 12), (100, 12), (1000, 12), (4096, 12), (500, 15),
-                    (100, 16), (100, 24)]
-)
-def test_all_encode_lookup_forms_agree(K, precision):
-    """Every eligible encode-side (cum, prob) lookup form must produce the
-    identical answer on the same symbols: the dispatcher's choice can never
-    change the bitstream."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(K * 5 + precision)
-    c = _leaky_cdf(rng, K, precision)
-    syms = np.concatenate(
-        [np.arange(min(K, 512)), rng.randint(0, K, size=1000), [K - 1]]
-    ).astype(np.int32)
-    forms = [("tree", lambda s: pc._cum_prob_from_sym_tree(s, c, precision))]
-    if K <= 16 and precision <= 15:
-        forms.append(
-            ("flat", lambda s: pc._cum_prob_from_sym_flat(s, c, precision))
-        )
-    if K > 16 and precision <= 15:
-        forms.append(
-            ("segmented",
-             lambda s: pc._cum_prob_from_sym_segmented(s, c, precision))
-        )
-    if 5 < precision <= 15:
-        forms.append(
-            ("bitmap",
-             lambda s: pc._cum_prob_from_sym_bitmap(s, c, precision))
-        )
-    for name, fn in forms:
-        cum, prob = (np.asarray(x) for x in jax.jit(fn)(jnp.asarray(syms)))
-        np.testing.assert_array_equal(cum, c[syms], err_msg=name)
-        np.testing.assert_array_equal(prob, c[syms + 1] - c[syms],
-                                      err_msg=name)
 
 
 @pytest.mark.parametrize("K", [1000, 4096])
 def test_pallas_encode_bitmap_roundtrip(K):
-    """End-to-end Pallas encode at large K routes through the bitmap-select
-    lookup (P=12 <= 15 gate, cost below the select tree's) and must stay
+    """End-to-end device encode at dense alphabets (K up to 2^P) stays
     bitstream-identical to the host encoder."""
     rng = np.random.RandomState(K + 1)
     n, L, P = 5000, 256, 12
@@ -700,6 +264,118 @@ def test_pallas_encode_bitmap_roundtrip(K):
     states, stream = il2.encode_shared(
         cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols], cfg
     )
-    st_d, stream_d = pc.encode_iid_pallas(symbols, cdf, cfg)
+    st_d, stream_d = dc.encode(symbols, cdf, cfg)
     np.testing.assert_array_equal(np.asarray(st_d), states)
     np.testing.assert_array_equal(np.asarray(stream_d), stream)
+
+
+# ---------------------------------------------------------------------------
+# Route selection, both widths: seeds, final states, tails, batches
+# ---------------------------------------------------------------------------
+
+PRESETS = [(12, 16, 32), (24, 32, 64)]
+
+
+def _setup(P, W, S, L, n, seed, K=40):
+    rng = np.random.RandomState(seed)
+    probs = rng.dirichlet(np.full(K, 2.0))
+    cdf = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
+        probs, P
+    ).cdf
+    symbols = rng.choice(K, size=n, p=probs).astype(np.int64)
+    cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S, precision=P)
+    cdf64 = cdf.astype(np.uint64)
+    return rng, cdf, symbols, cfg, cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols]
+
+
+def test_route_selector_cpu():
+    assert route.platform() == "cpu"
+    assert route.coder_route() == "xla"
+    assert not route.on_accelerator()
+    with route.forced("xla"):
+        assert route.coder_route() == "xla"
+    with pytest.raises(RuntimeError, match="GPU"):
+        with route.forced("cuda"):
+            pass
+    with pytest.raises(ValueError, match="route"):
+        with route.forced("bogus"):
+            pass
+    assert route.coder_route() == "xla"
+
+
+@pytest.mark.parametrize("W,S,P,ok", [
+    (16, 32, 12, True), (16, 32, 16, True), (32, 64, 24, True),
+    (32, 64, 32, True), (8, 32, 12, False), (16, 64, 24, False),
+])
+def test_device_coder_supports(W, S, P, ok):
+    assert dc.supports(LaneConfig(128, W, S, P)) is ok
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+@pytest.mark.parametrize("L", [1, 37, 128, 1000])
+def test_device_seeds_and_final_states(P, W, S, L):
+    n = 5 * L + 3
+    rng, cdf, symbols, cfg, cums, probs = _setup(P, W, S, L, n, seed=L + P)
+    F = S - W
+    seeds = (np.uint64(1) << np.uint64(F)) | rng.randint(
+        0, 1 << min(F, 31), size=L).astype(np.uint64)
+    ref_st, ref_w = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+    st, w = dc.encode(symbols, cdf, cfg, seeds=seeds)
+    np.testing.assert_array_equal(st.astype(np.uint64), ref_st.astype(np.uint64))
+    np.testing.assert_array_equal(w, ref_w)
+    out, fin = dc.decode(ref_st, ref_w, n, cdf, cfg, return_final_states=True)
+    np.testing.assert_array_equal(out, symbols)
+    np.testing.assert_array_equal(fin.astype(np.uint64), seeds)
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+@pytest.mark.parametrize("dn", [-1, 0, 1, 7])
+def test_device_tail_step(P, W, S, dn):
+    """Lanes past the message end are inactive in the last step only."""
+    L = 64
+    n = 3 * L + dn
+    _, cdf, symbols, cfg, cums, probs = _setup(P, W, S, L, n, seed=dn + 10)
+    ref_st, ref_w = il2.encode_shared(cums, probs, cfg)
+    st, w = dc.encode(symbols, cdf, cfg)
+    np.testing.assert_array_equal(st.astype(np.uint64), ref_st.astype(np.uint64))
+    np.testing.assert_array_equal(w, ref_w)
+    np.testing.assert_array_equal(dc.decode(ref_st, ref_w, n, cdf, cfg), symbols)
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+def test_device_blocks_match_host_per_block(P, W, S):
+    L, B, block_len = 32, 3, 200
+    _, cdf, symbols, cfg, cums, probs = _setup(P, W, S, L, B * block_len, seed=P)
+    st, streams = dc.encode_blocks(symbols.reshape(B, block_len), cdf, cfg)
+    for b in range(B):
+        sl = slice(b * block_len, (b + 1) * block_len)
+        ref_st, ref_w = il2.encode_shared(cums[sl], probs[sl], cfg)
+        np.testing.assert_array_equal(st[b].astype(np.uint64),
+                                      ref_st.astype(np.uint64))
+        np.testing.assert_array_equal(streams[b], ref_w)
+    out, fin = dc.decode_blocks(st, streams, block_len, cdf, cfg)
+    np.testing.assert_array_equal(out.reshape(-1), symbols)
+    assert np.all(fin.astype(np.uint64) == np.uint64(1 << (S - W)))
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+def test_device_truncated_stream_matches_oracle(P, W, S):
+    """Words past the end of a truncated stream read as zero, as in the
+    host oracle's numpy twin (n < 256 keeps the oracle off the native
+    decoder)."""
+    L, n = 16, 200
+    _, cdf, symbols, cfg, cums, probs = _setup(P, W, S, L, n, seed=3)
+    st, w = il2.encode_shared(cums, probs, cfg)
+    cut = w[: len(w) // 2]
+    ref = il2.decode_shared_cdf(st, cut, n, cdf, cfg)
+    np.testing.assert_array_equal(dc.decode(st, cut, n, cdf, cfg), ref)
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+def test_device_empty_message(P, W, S):
+    _, cdf, _, cfg, _, _ = _setup(P, W, S, 8, 0, seed=0)
+    st, w = dc.encode(np.zeros(0, np.int64), cdf, cfg)
+    assert len(w) == 0 and np.all(st.astype(np.uint64) == np.uint64(1 << (S - W)))
+    out, fin = dc.decode(st, w, 0, cdf, cfg, return_final_states=True)
+    assert len(out) == 0
+    np.testing.assert_array_equal(fin, st)

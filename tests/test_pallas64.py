@@ -1,4 +1,5 @@
-"""ILANS2-64: default-preset (W=32, S=64, P<=24) Pallas kernels vs the
+"""ILANS2-64: the default-preset (W=32, S=64, P<=24) device coder
+(ops/device_coder.py, on the CPU through the plain-XLA route) vs the
 width-generic numpy oracle (ops/interleaved2), plus the container round
 trip.  Reference preset: stack.rs:139 (DefaultAnsCoder = AnsCoder<u32,u64>)
 with the Python API's P=24 fixed-point models."""
@@ -10,7 +11,7 @@ from constriction_tpu.models.categorical import (
     ContiguousCategoricalEntropyModel,
 )
 from constriction_tpu.ops import interleaved2 as il2
-from constriction_tpu.ops import pallas_coder64 as pc64
+from constriction_tpu.ops import device_coder as dc
 from constriction_tpu.ops.interleaved import LaneConfig
 
 
@@ -40,7 +41,7 @@ def test_decode64_matches_oracle(K, P, n):
     cdf64 = cdf.astype(np.uint64)
     st, stream = il2.encode_shared(cdf64[syms], cdf64[syms + 1] - cdf64[syms], cfg)
     assert st.dtype == np.uint64
-    out = pc64.decode_shared64_pallas(st, stream, cdf, cfg, n)
+    out = dc.decode(st, stream, n, cdf, cfg)
     assert np.array_equal(np.asarray(out), syms)
 
 
@@ -60,7 +61,7 @@ def test_encode64_bit_exact_with_host(K, P, n):
     ref_st, ref_w = il2.encode_shared(
         cdf64[syms], cdf64[syms + 1] - cdf64[syms], cfg
     )
-    st, w = pc64.encode_iid64_pallas(syms.astype(np.int32), cdf, cfg)
+    st, w = dc.encode(syms, cdf, cfg)
     assert np.array_equal(st, ref_st)
     assert np.array_equal(np.asarray(w), ref_w)
 
@@ -99,62 +100,6 @@ def test_container64_state_planes():
     assert np.array_equal(stream2, stream)
 
 
-def test_div64_exhaustive_random():
-    """The 4-digit base-2^16 long division is exact over random (state,
-    prob) pairs spanning the full envelope (state < 2^64, prob in
-    [1, 2^24])."""
-    import jax
-
-    rng = np.random.RandomState(42)
-    n = 1 << 14
-    # stress states near the renorm envelope and probs across all scales
-    hi = rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
-    lo = rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
-    state = (hi << np.uint64(32)) | lo
-    prob = np.minimum(
-        np.uint64(1) << rng.randint(0, 25, size=n).astype(np.uint64),
-        np.uint64(1 << 24),
-    )
-    jitter = rng.randint(0, 1 << 24, size=n).astype(np.uint64)
-    prob = np.maximum(np.uint64(1), np.minimum(prob | jitter % prob, np.uint64(1 << 24)))
-
-    import jax.numpy as jnp
-
-    f = jax.jit(lambda h, l, p: pc64._div64(h, l, p))
-    qh, ql, r = f(
-        jnp.asarray((state >> np.uint64(32)).astype(np.uint32)),
-        jnp.asarray((state & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
-        jnp.asarray(prob.astype(np.uint32)),
-    )
-    q = (np.asarray(qh).astype(np.uint64) << np.uint64(32)) | np.asarray(
-        ql
-    ).astype(np.uint64)
-    r = np.asarray(r).astype(np.uint64)
-    assert np.array_equal(q, state // prob)
-    assert np.array_equal(r, state % prob)
-
-
-def test_mul40x25_random():
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(7)
-    n = 1 << 14
-    a = rng.randint(0, 1 << 40, size=n, dtype=np.uint64)
-    b = rng.randint(1, (1 << 24) + 1, size=n, dtype=np.uint64)
-
-    f = jax.jit(lambda sh, sl, bb: pc64._mul40x25(sh, sl, bb))
-    hi, lo = f(
-        jnp.asarray((a >> np.uint64(32)).astype(np.uint32)),
-        jnp.asarray((a & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
-        jnp.asarray(b.astype(np.uint32)),
-    )
-    got = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(
-        lo
-    ).astype(np.uint64)
-    assert np.array_equal(got, a * b)
-
-
 def test_checkpoints64_suffix_decode():
     """Interleaved random-access checkpoints carry u64 states at S = 64;
     suffix decode from a snapshot equals the full decode's suffix."""
@@ -174,134 +119,6 @@ def test_checkpoints64_suffix_decode():
         ckpts[c], stream[offsets[c]:], n - start, cdf, cfg
     )
     assert np.array_equal(np.asarray(suffix), syms[start:])
-
-
-@pytest.mark.parametrize("K,P,n", [
-    (100, 24, 8000),
-    (16, 20, 3000),
-    (1000, 24, 5000),
-    (100, 24, 256 * 5),
-    (100, 24, 2),
-])
-def test_range64_decode_matches_oracle(K, P, n):
-    """ILANS2-R64 (default-preset range coding): host C++ encode (u64
-    points), kernel decode vs the width-generic numpy oracle."""
-    from constriction_tpu import native
-
-    if native.LIB is None:
-        pytest.skip("needs the native codec")
-    cdf, probs = _model(K, P, seed=7 * K + P)
-    cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64, precision=P)
-    rng = np.random.RandomState(n + 3)
-    syms = rng.choice(K, size=n, p=probs).astype(np.int64)
-    cdf64 = cdf.astype(np.uint64)
-    pts, stream = il2.encode_shared_range(
-        cdf64[syms], cdf64[syms + 1] - cdf64[syms], cfg
-    )
-    assert pts.dtype == np.uint64
-    out0 = il2.decode_shared_range_cdf(pts, stream, n, cdf, cfg)
-    assert np.array_equal(out0, syms)
-    out = pc64.decode_shared_range64_pallas(pts, stream, cdf, cfg, n)
-    assert np.array_equal(np.asarray(out), syms)
-
-
-@pytest.mark.parametrize("K,P,n", [
-    (16, 24, 2000),
-    (100, 24, 5000),
-    (100, 16, 3000),
-    (100, 24, 256 * 5),
-    (100, 24, 1),
-])
-def test_range64_encode_bit_exact_with_host(K, P, n):
-    """ILANS2-R64 device-side range ENCODER (two-phase big-number carry
-    resolution at W=32/S=64) equals the host path bit for bit and round
-    trips through the oracle decoder (per-lane algebra queue.rs:637-702)."""
-    from constriction_tpu.ops import pallas_range_enc as pre
-
-    cdf, probs = _model(K, P, seed=11 * K + P)
-    cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64, precision=P)
-    rng = np.random.RandomState(n + 9)
-    syms = rng.choice(K, size=n, p=probs).astype(np.int64)
-    cdf64 = cdf.astype(np.uint64)
-    ref_pts, ref_w = il2.encode_shared_range(
-        cdf64[syms], cdf64[syms + 1] - cdf64[syms], cfg
-    )
-    pts, w = pre.encode_iid_range64_pallas(syms, cdf, cfg)
-    assert pts.dtype == np.uint64
-    np.testing.assert_array_equal(pts, ref_pts)
-    np.testing.assert_array_equal(np.asarray(w), ref_w)
-    out = il2.decode_shared_range_cdf(pts, w, n, cdf, cfg)
-    assert np.array_equal(out, syms)
-
-
-def test_range64_encode_skewed_carry_runs():
-    """A 99.9%-mass symbol produces long deferred-carry (Inverted) runs;
-    the device encoder's pending-+1 ripple must resolve them identically
-    to the host scan (queue.rs:647-666)."""
-    from constriction_tpu.ops import pallas_range_enc as pre
-
-    P, K, n = 24, 4, 3000
-    q = np.array([(1 << P) - 3, 1, 1, 1], dtype=np.int64)
-    cdf = np.concatenate([[0], np.cumsum(q)])
-    cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64, precision=P)
-    rng = np.random.RandomState(13)
-    syms = np.where(rng.random(n) < 0.999, 0, rng.randint(1, K, n)).astype(np.int64)
-    cdf64 = cdf.astype(np.uint64)
-    ref_pts, ref_w = il2.encode_shared_range(
-        cdf64[syms], cdf64[syms + 1] - cdf64[syms], cfg
-    )
-    pts, w = pre.encode_iid_range64_pallas(syms, cdf, cfg)
-    np.testing.assert_array_equal(pts, ref_pts)
-    np.testing.assert_array_equal(np.asarray(w), ref_w)
-
-
-def test_range64_invalid_data_detection():
-    """A quantile >= 2^P raises the reference's InvalidData error
-    (queue.rs:991-993)."""
-    from constriction_tpu import native
-
-    if native.LIB is None:
-        pytest.skip("needs the native codec")
-    cdf, _ = _model(100, 24, seed=1)
-    cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64, precision=24)
-    pts = np.full(256, np.uint64(0xFFFFFFFFFFFFFFFF))
-    stream = np.zeros(1024, np.uint32)
-    with pytest.raises(ValueError, match="inconsistent with the entropy model"):
-        pc64.decode_shared_range64_pallas(pts, stream, cdf, cfg, 1024)
-
-
-def test_div64_by_scale_random():
-    """The pair-divisor digit division is exact over random 64-bit
-    dividends and scales across the full envelope [1, 2^40): the quotient
-    matches wherever it fits 32 bits, and the overflow flag is exactly
-    ``q >= 2^32`` (the range decoder's invalid-data signal)."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(11)
-    n = 1 << 14
-    d = rng.randint(0, 1 << 63, size=n, dtype=np.uint64) * np.uint64(2) + (
-        rng.randint(0, 2, size=n).astype(np.uint64)
-    )
-    sc = np.maximum(
-        np.uint64(1),
-        rng.randint(0, 1 << 40, size=n, dtype=np.uint64)
-        >> rng.randint(0, 40, size=n).astype(np.uint64),
-    )
-
-    f = jax.jit(lambda dh, dl, sh, sl: pc64._div64_by_scale(dh, dl, sh, sl))
-    q_lo, q_ovr = f(
-        jnp.asarray((d >> np.uint64(32)).astype(np.uint32)),
-        jnp.asarray((d & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
-        jnp.asarray((sc >> np.uint64(32)).astype(np.uint32)),
-        jnp.asarray((sc & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
-    )
-    q_true = d // sc
-    fits = (q_true >> np.uint64(32)) == 0
-    np.testing.assert_array_equal(np.asarray(q_ovr), ~fits)
-    np.testing.assert_array_equal(
-        np.asarray(q_lo).astype(np.uint64)[fits], q_true[fits]
-    )
 
 
 def test_native_host_paths_match_numpy_s64():
@@ -342,9 +159,8 @@ def test_native_host_paths_match_numpy_s64():
 
 
 def test_decode_from_checkpoint64_device_path():
-    """decode_from_checkpoint routes S=64 configs to the ILANS2-64 kernel
-    (regression: the widened Pallas eligibility used to send them into the
-    S=32 kernel's assert)."""
+    """decode_from_checkpoint resumes S=64 configs on the device coder with
+    u64 checkpoint states."""
     K, P, n = 60, 24, 256 * 12
     cdf, probs = _model(K, P, seed=17)
     cfg = LaneConfig(num_lanes=256, word_bits=32, state_bits=64, precision=P)

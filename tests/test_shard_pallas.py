@@ -1,127 +1,82 @@
-"""Sharded Pallas encode/decode over the 8-device CPU test mesh."""
+"""Sharded device encode/decode (parallel.sharding.shard_encode2 /
+shard_decode2) over the 8-device CPU test mesh; on the CPU the device
+coder is the plain-XLA route.  The file keeps its historical name."""
 
+import jax
 import numpy as np
-import jax, jax.numpy as jnp
 
 from constriction_tpu.models.categorical import ContiguousCategoricalEntropyModel
+from constriction_tpu.ops import device_coder as dc
 from constriction_tpu.ops import interleaved2 as il2
-from constriction_tpu.ops import pallas_coder as pc
 from constriction_tpu.ops.interleaved import LaneConfig
 from constriction_tpu.parallel import sharding as sh
+
+
+def _blocks(seed, D, block_len, alphabet, P):
+    rng = np.random.RandomState(seed)
+    probs = rng.dirichlet(np.full(alphabet, 2.0))
+    cdf = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
+        probs, P
+    ).cdf
+    symbols = rng.choice(alphabet, size=D * block_len, p=probs).astype(np.int64)
+    return cdf, symbols
+
 
 def test_sharded_pallas_roundtrip():
     mesh = sh.make_mesh()
     D = len(jax.devices())
-
-    rng = np.random.RandomState(0)
-    alphabet, L = 50, 128
-    block_len = 1000
-    n = D * block_len
-    probs = rng.dirichlet(np.full(alphabet, 2.0))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(probs, 12)
-    cdf = model.cdf
-    symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int32)
+    block_len, L = 1000, 128
+    cdf, symbols = _blocks(0, D, block_len, 50, 12)
     cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
 
-    syms2d = jnp.asarray(symbols).reshape(D, block_len)
-    states, bufs, ends = sh.shard_encode2_pallas(mesh, syms2d, cdf, cfg)
-    states, bufs, ends = map(np.asarray, (states, bufs, ends))
-    R = L // 128
-    T = -(-block_len // L)
-    cap_rows = T * R + 1
-
-    # check per-block bit-exactness vs host encoder + rebuild padded streams2d
+    states, streams = sh.shard_encode2(mesh, symbols.reshape(D, block_len), cdf, cfg)
     cdf64 = cdf.astype(np.uint64)
-    streams2d = []
     for d in range(D):
-        blk = symbols[d*block_len:(d+1)*block_len].astype(np.int64)
-        ref_st, ref_stream = il2.encode_shared(cdf64[blk], cdf64[blk+1]-cdf64[blk], cfg)
-        got_stream = bufs[d].reshape(-1)[ends[d,0]: cap_rows*128]
+        blk = symbols[d * block_len:(d + 1) * block_len]
+        ref_st, ref_stream = il2.encode_shared(
+            cdf64[blk], cdf64[blk + 1] - cdf64[blk], cfg)
         assert np.array_equal(states[d], ref_st), d
-        assert np.array_equal(got_stream, ref_stream), d
-        streams2d.append(np.asarray(pc._pad_stream2d(got_stream, R)))
+        assert np.array_equal(streams[d], ref_stream), d
 
-
-    rows = max(s.shape[0] for s in streams2d)
-    streams_arr = np.zeros((D, rows, 128), np.uint32)
-    for d, s in enumerate(streams2d):
-        streams_arr[d, :s.shape[0]] = s
-
-    out = np.asarray(sh.shard_decode2_pallas(mesh, jnp.asarray(states), jnp.asarray(streams_arr), cdf, cfg, block_len))
+    out, fin = sh.shard_decode2(mesh, states, streams, cdf, cfg, block_len)
     assert np.array_equal(out.reshape(-1), symbols), "decode mismatch"
-
+    assert np.all(fin == 1 << 16)
 
 
 def test_sharded_container_random_access():
     """Blocks are independent ILANS2 units: any single block decodes alone
     (the random-access / seek analog for the sharded container format)."""
-    import jax
-
-    from constriction_tpu.models.categorical import (
-        ContiguousCategoricalEntropyModel,
-    )
-    from constriction_tpu.ops import interleaved2 as il2
-    from constriction_tpu.ops import pallas_coder as pc
-    from constriction_tpu.ops.interleaved import LaneConfig
-    from constriction_tpu.parallel import sharding as sh
-
-    rng = np.random.RandomState(1)
     D, block_len, L = 4, 800, 128
     cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    probs = rng.dirichlet(np.full(20, 2.0))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 12
-    )
-    cdf = model.cdf
-    symbols = rng.choice(20, size=D * block_len, p=probs).astype(np.int32)
+    cdf, symbols = _blocks(1, D, block_len, 20, 12)
     mesh = sh.make_mesh(min(D, len(jax.devices())))
-    syms2d = jnp.asarray(symbols).reshape(D, block_len)
-    states, bufs, ends = sh.shard_encode2_pallas(mesh, syms2d, cdf, cfg)
-    states, bufs, ends = map(np.asarray, (states, bufs, ends))
-    T = -(-block_len // L)
-    cap_rows = T * (L // 128) + 1
+    states, streams = sh.shard_encode2(mesh, symbols.reshape(D, block_len), cdf, cfg)
     # decode ONLY block 2, without touching the others
     d = 2
-    words = bufs[d].reshape(-1)[ends[d, 0] : cap_rows * 128]
-    out = np.asarray(pc.decode_shared_pallas(states[d], words, cdf, cfg, block_len))
-    np.testing.assert_array_equal(out, symbols[d * block_len : (d + 1) * block_len])
+    out = dc.decode(states[d], streams[d], block_len, cdf, cfg)
+    np.testing.assert_array_equal(out, symbols[d * block_len:(d + 1) * block_len])
 
 
 def test_sharded_pallas64_default_preset_roundtrip():
-    """DEFAULT-preset (W=32/S=64/P=24) blocks decoded in parallel under
-    shard_map (ops/pallas_coder64.py per device)."""
-    from constriction_tpu.parallel import sharding as sh64
-
-    mesh = sh64.make_mesh()
+    """DEFAULT-preset (W=32/S=64/P=24) blocks coded in parallel under
+    shard_map, u64 lane states."""
+    mesh = sh.make_mesh()
     D = len(jax.devices())
-
-    rng = np.random.RandomState(3)
-    alphabet, L = 40, 128
-    block_len = 700
-    n = D * block_len
-    probs = rng.dirichlet(np.full(alphabet, 2.0))
-    cdf = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 24
-    ).cdf
-    symbols = rng.choice(alphabet, size=n, p=probs).astype(np.int64)
+    block_len, L = 700, 128
+    cdf, symbols = _blocks(3, D, block_len, 40, 24)
     cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64, precision=24)
     cdf64 = cdf.astype(np.uint64)
-
-    R = L // 128
-    hi_l, lo_l, streams = [], [], []
+    states, streams = [], []
     for d in range(D):
-        blk = symbols[d * block_len : (d + 1) * block_len]
+        blk = symbols[d * block_len:(d + 1) * block_len]
         st, sw = il2.encode_shared(cdf64[blk], cdf64[blk + 1] - cdf64[blk], cfg)
-        hi_l.append((st >> np.uint64(32)).astype(np.uint32))
-        lo_l.append((st & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-        streams.append(np.asarray(pc._pad_stream2d(sw, R)))
-    rows = max(s.shape[0] for s in streams)
-    arr = np.zeros((D, rows, 128), np.uint32)
-    for d, s in enumerate(streams):
-        arr[d, : s.shape[0]] = s
-
-    out = sh64.shard_decode64_pallas(
-        mesh, jnp.asarray(np.stack(hi_l)), jnp.asarray(np.stack(lo_l)),
-        jnp.asarray(arr), cdf, cfg, block_len,
-    )
-    assert np.array_equal(np.asarray(out).reshape(-1), symbols)
+        states.append(st)
+        streams.append(sw)
+    out, _ = sh.shard_decode2(mesh, np.stack(states), streams, cdf, cfg, block_len)
+    assert np.array_equal(out.reshape(-1), symbols)
+    st_d, streams_d = sh.shard_encode2(
+        mesh, symbols.reshape(D, block_len), cdf, cfg)
+    assert st_d.dtype == np.uint64
+    assert np.array_equal(st_d, np.stack(states))
+    for d in range(D):
+        assert np.array_equal(streams_d[d], streams[d]), d

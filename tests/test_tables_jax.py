@@ -6,7 +6,6 @@ from constriction_tpu.models.categorical import (
     ContiguousCategoricalEntropyModel,
 )
 from constriction_tpu.ops import interleaved2 as il2
-from constriction_tpu.ops import pallas_family as pf
 from constriction_tpu.ops import tables_jax as tj
 from constriction_tpu.ops.interleaved import LaneConfig
 
@@ -45,18 +44,6 @@ def test_device_built_table_roundtrip():
     )
     out = il2.decode_shared_cdf(states, stream, n, cdf, cfg)
     np.testing.assert_array_equal(out, symbols)
-
-
-def test_family_tables_jax_bit_identical_to_host():
-    rng = np.random.RandomState(2)
-    n = 500
-    means = (rng.randn(n) * 20).astype(np.float32)
-    scales = (0.5 + np.abs(rng.randn(n)) * 3).astype(np.float32)
-    symbols = np.clip(np.round(means), -100, 100).astype(np.int32)
-    ch, ph = pf.family_tables_host(symbols, means, scales, "gaussian", -100, 100)
-    cj, pj = tj.family_tables_jax(symbols, means, scales, "gaussian", -100, 100)
-    np.testing.assert_array_equal(np.asarray(cj).astype(np.uint64), ch)
-    np.testing.assert_array_equal(np.asarray(pj).astype(np.uint64), ph)
 
 
 def test_fast_cdf_jax_clamps_overshoot_to_leaky():

@@ -1,4 +1,5 @@
-"""Public TPU facade round trips (interpreter mode on the CPU test mesh)."""
+"""Public device facade (constriction_tpu.tpu) round trips; on the CPU the
+device coder is the plain-XLA route."""
 
 import numpy as np
 import pytest
@@ -21,17 +22,6 @@ def test_facade_iid_roundtrip():
     np.testing.assert_array_equal(np.asarray(out), symbols)
 
 
-def test_facade_family_roundtrip():
-    rng = np.random.RandomState(1)
-    n = 2000
-    means = (rng.randn(n) * 5).astype(np.float32)
-    scales = (0.5 + np.abs(rng.randn(n))).astype(np.float32)
-    symbols = np.clip(np.round(means + rng.randn(n) * scales), -50, 50).astype(np.int32)
-    states, stream = ctpu.encode_family(symbols, means, scales, "gaussian", -50, 50)
-    out = ctpu.decode_family(states, stream, means, scales, "gaussian", -50, 50, n)
-    np.testing.assert_array_equal(np.asarray(out), symbols)
-
-
 def test_facade_chain_decode():
     from constriction_tpu.ops.chain import ChainCoderCore
 
@@ -50,7 +40,7 @@ def test_facade_chain_decode():
 
 def test_facade_non_contiguous_alphabet():
     """Device coding for non-contiguous alphabets: host index mapping,
-    device codes indices (non_contiguous.rs parity on the TPU path)."""
+    device codes indices (non_contiguous.rs parity on the device path)."""
     import numpy as np
 
     import constriction_tpu.tpu as ctpu
@@ -87,32 +77,9 @@ def test_facade_encode_iid_rejects_out_of_range_symbols():
         ctpu.encode_iid(np.array([0, 10]), model.cdf)
 
 
-def test_facade_range_decode_host_fallback_for_ineligible_config():
-    """encode_iid_range silently falls back to the host encoder for
-    configs the Pallas kernels do not cover; decode_iid_range must decode
-    that data through the same host oracle instead of tripping a kernel
-    assert."""
-    from constriction_tpu.ops.interleaved import LaneConfig
-
-    rng = np.random.RandomState(6)
-    probs = rng.dirichlet(np.ones(20))
-    model = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
-        probs, 12
-    )
-    syms = rng.choice(20, size=500, p=probs).astype(np.int64)
-    cfg = LaneConfig(num_lanes=64, word_bits=16, state_bits=32, precision=12)
-    assert not __import__(
-        "constriction_tpu.ops.interleaved2", fromlist=["x"]
-    )._pallas_eligible(cfg)  # 64 lanes don't tile the 128-wide VPU
-    pts, stream = ctpu.encode_iid_range(syms, model.cdf, cfg=cfg)
-    out = ctpu.decode_iid_range(pts, stream, model.cdf, len(syms), cfg=cfg)
-    assert np.array_equal(np.asarray(out)[: len(syms)], syms)
-
-
 def test_facade_precision_follows_model():
     """The facade infers the lane config from the model's fixed-point CDF:
-    a P=24 model rides the S=64 kernels with no explicit cfg (before this,
-    the facade pinned P=12 and rejected default-preset models)."""
+    a P=24 model rides the S=64 coder with no explicit cfg."""
     import constriction_tpu.tpu as ctpu
     from constriction_tpu.models.categorical import (
         ContiguousCategoricalEntropyModel,
@@ -138,3 +105,51 @@ def test_facade_precision_follows_model():
     with pytest.raises(ValueError, match="power of two"):
         # 11-entry cdf (10 symbols, all syms in range) topping at 110
         ctpu.encode_iid(syms, np.arange(0, 121, 11))
+
+
+PRESETS = [(12, 16, 32), (24, 32, 64)]
+
+
+def _model_syms(P, n, seed, K=60):
+    rng = np.random.RandomState(seed)
+    probs = rng.dirichlet(np.full(K, 2.0))
+    cdf = ContiguousCategoricalEntropyModel.from_floating_point_probabilities_fast(
+        probs, P
+    ).cdf
+    return cdf, rng.choice(K, size=n, p=probs).astype(np.int64)
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+@pytest.mark.parametrize("compact", [True, False])
+def test_facade_container_bytes_equal_host(P, W, S, compact):
+    """The facade's device container equals the host-built container byte
+    for byte, compact (v2) and v1, at both presets."""
+    from constriction_tpu.ops import framing
+    from constriction_tpu.ops import interleaved2 as il2
+    from constriction_tpu.ops.interleaved import LaneConfig
+
+    cdf, syms = _model_syms(P, 40000, seed=P + compact)
+    cfg = LaneConfig(num_lanes=256, word_bits=W, state_bits=S, precision=P)
+    data = ctpu.encode_iid(syms, cdf, cfg, compact=compact)
+    if compact:
+        host = framing.encode_iid_v2(syms, cdf, cfg, device=False)
+    else:
+        host = il2.encode_iid_categorical2(syms, cdf, cfg, device=False)
+    np.testing.assert_array_equal(data, host)
+    np.testing.assert_array_equal(ctpu.decode_iid(data, cdf), syms)
+
+
+@pytest.mark.parametrize("P,W,S", PRESETS)
+@pytest.mark.parametrize("compact", [True, False])
+def test_facade_checkpoint_resume(P, W, S, compact):
+    from constriction_tpu.ops.interleaved import LaneConfig
+
+    cdf, syms = _model_syms(P, 30000, seed=7 + P)
+    cfg = LaneConfig(num_lanes=128, word_bits=W, state_bits=S, precision=P)
+    data = ctpu.encode_iid(syms, cdf, cfg, compact=compact)
+    offsets, states = ctpu.build_checkpoints(data, cdf, 16)
+    for c in (0, len(offsets) // 2):
+        start, suffix = ctpu.decode_from_checkpoint(data, cdf, 16, c,
+                                                    offsets, states)
+        assert start == (c + 1) * 16 * 128
+        np.testing.assert_array_equal(suffix, syms[start:])
